@@ -1,0 +1,1 @@
+"""The layers of the Inception-v1 serving path."""

@@ -1,0 +1,35 @@
+"""Linear, ported from ``bigdl_tpu/nn/layers/linear.py``."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from bigdl_tpu_torch.nn.init import RandomUniform
+from bigdl_tpu_torch.nn.module import Module
+
+__all__ = ["Linear"]
+
+
+class Linear(Module):
+    """y = x W^T + b (``nn/Linear.scala``); weight layout (out, in)."""
+
+    def __init__(self, input_size: int, output_size: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.input_size, self.output_size = input_size, output_size
+        init = RandomUniform()
+        self.weight = torch.nn.Parameter(init.init(
+            (output_size, input_size), input_size, generator))
+        self.bias = torch.nn.Parameter(init.init(
+            (output_size,), input_size, generator))
+
+    def forward(self, x):
+        squeeze = x.ndim == 1
+        if squeeze:
+            x = x[None]
+        # the weight follows the activation dtype (linear.py:67)
+        y = F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        return y[0] if squeeze else y
