@@ -11,7 +11,7 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "strict_f32"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -24,3 +24,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "CUDA is not available on this machine; pass device='cpu' "
             "(or --device cpu) to run on the CPU")
     return dev
+
+
+def strict_f32() -> None:
+    """Make f32 mean f32 on the card: cuDNN convolutions default to TF32
+    (about three decimal digits); matmuls are switched off too."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False

@@ -1,20 +1,96 @@
 """Command-line entry point of the port (ported from
-``bigdl_tpu/models/cli.py``; only ``serve`` so far).
+``bigdl_tpu/models/cli.py``; ``perf`` and ``serve`` so far).
 
+    python -m bigdl_tpu_torch.models.cli perf --model inception_v1 -b 256
     python -m bigdl_tpu_torch.models.cli serve --model inception_v1 \\
         --port 0 -b 8 --buckets 1,2,4,8 --max-wait-ms 2 --bf16
 
-The ready line prints after every bucket is warm; SIGTERM drains
-gracefully and prints ``drained: ...``.  Runs on ``cuda`` unless
-``--device cpu``.
+``perf`` trains on one fixed synthetic batch (warm-up steps, then timed
+steps) and ends with ``<model>: X records/sec (batch B, I iters, S s)``.
+``serve`` prints its ready line after every bucket is warm; SIGTERM
+drains gracefully and prints ``drained: ...``.  Both run on ``cuda``
+unless ``--device cpu``.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import time
 from typing import List, Optional
 
-__all__ = ["main", "cmd_serve"]
+__all__ = ["main", "cmd_perf", "cmd_serve"]
+
+
+def cmd_perf(args) -> None:
+    """The LocalOptimizerPerf protocol (``cmd_perf`` of the JAX
+    package): synthetic data from ``np.random.default_rng(0)``, SGD(0.01,
+    momentum 0.9), bf16 compute unless ``--no-bf16``, warm-up steps, then
+    timed steps.  Before the records/sec line it prints one JSON line:
+    every step's loss, the kernel launches of all steps, the timed step
+    time and the peak device memory.  The timed window synchronises only
+    at its two ends."""
+    import numpy as np
+    import torch
+
+    from bigdl_tpu_torch.device import resolve_device
+    from bigdl_tpu_torch.models import registry
+    from bigdl_tpu_torch.nn.criterion import ClassNLLCriterion
+    from bigdl_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from bigdl_tpu_torch.optim import SGD
+    from bigdl_tpu_torch.parallel import TrainStep
+
+    device = resolve_device(args.device)
+    num_classes = args.num_classes or 1000
+    model = registry.build_model(args.model, num_classes,
+                                 generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    shape = registry.input_spec(args.model, args.batch_size).shape
+    x = rng.normal(size=shape).astype(np.float32)
+    y = rng.integers(0, num_classes, args.batch_size)
+    step = TrainStep(model, ClassNLLCriterion(),
+                     SGD(learning_rate=0.01, momentum=0.9),
+                     compute_dtype=torch.bfloat16 if args.bf16 else None,
+                     device=device)
+    x, y = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def gen(seed):
+        return torch.Generator(device).manual_seed(seed)
+
+    def train(seed):
+        # no host read inside the window: the loss stays on the device
+        # until the end, as the JAX loop fetches nothing per step
+        loss = step.loss(x, y, gen(seed))
+        step.update(step.grads(loss))
+        return loss.detach()
+
+    reset_kernel_launches()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    losses = [train(i) for i in range(args.warmup)]
+    sync()
+    t0 = time.perf_counter()
+    losses += [train(100 + i) for i in range(args.iteration)]
+    sync()
+    wall = time.perf_counter() - t0
+    losses = [float(v) for v in losses]
+    rate = args.batch_size * args.iteration / wall
+    print(json.dumps({
+        "perf": args.model, "batch": args.batch_size, "bf16": args.bf16,
+        "warmup": args.warmup, "iters": args.iteration, "losses": losses,
+        "launches": kernel_launches(),
+        "step_ms": wall / max(args.iteration, 1) * 1e3,
+        "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
+                                 if device.type == "cuda" else None),
+        "device": (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else "cpu")}), flush=True)
+    print(f"{args.model}: {rate:.1f} records/sec "
+          f"(batch {args.batch_size}, {args.iteration} iters, "
+          f"{wall:.2f}s)", flush=True)
 
 
 def cmd_serve(args) -> None:
@@ -49,6 +125,16 @@ def cmd_serve(args) -> None:
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="bigdl_tpu_torch.models.cli")
     sub = p.add_subparsers(dest="cmd", required=True)
+    pf = sub.add_parser("perf", help="synthetic-data throughput harness")
+    pf.add_argument("--model", default="inception_v1")
+    pf.add_argument("-b", "--batch-size", type=int, default=64)
+    pf.add_argument("-i", "--iteration", type=int, default=10)
+    pf.add_argument("--warmup", type=int, default=3)
+    pf.add_argument("--bf16", action="store_true", default=True)
+    pf.add_argument("--no-bf16", dest="bf16", action="store_false")
+    pf.add_argument("--num-classes", type=int, default=0)
+    pf.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    pf.set_defaults(fn=cmd_perf)
     s = sub.add_parser("serve", help="serve a model over HTTP")
     s.add_argument("--model", default="inception_v1")
     s.add_argument("--port", type=int, default=8080)

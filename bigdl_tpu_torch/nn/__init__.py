@@ -2,8 +2,9 @@
 under the JAX package's names (``bigdl_tpu/nn/__init__.py``)."""
 
 from bigdl_tpu_torch.nn.module import (  # noqa: F401
-    Module, Container, Sequential, state_dict, load_state_dict,
+    Module, Container, Sequential, state_dict, parameters, load_state_dict,
 )
+from bigdl_tpu_torch.nn.criterion import *  # noqa: F401,F403
 from bigdl_tpu_torch.nn import init  # noqa: F401
 from bigdl_tpu_torch.nn.layers.activation import *  # noqa: F401,F403
 from bigdl_tpu_torch.nn.layers.linear import *  # noqa: F401,F403

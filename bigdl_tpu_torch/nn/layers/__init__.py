@@ -1,1 +1,1 @@
-"""The layers of the Inception-v1 serving path."""
+"""The layers of the Inception-v1 serving and training paths."""

@@ -3,13 +3,33 @@
 
 from __future__ import annotations
 
+import contextlib
+from typing import Iterator, Optional
+
 import torch
 import torch.nn.functional as F
 
 from bigdl_tpu_torch.nn.module import Module
-from bigdl_tpu_torch.ops.lrn import cross_map_lrn_forward
+from bigdl_tpu_torch.ops.lrn import cross_map_lrn
 
-__all__ = ["SpatialCrossMapLRN", "Dropout"]
+__all__ = ["SpatialCrossMapLRN", "Dropout", "dropout_generator"]
+
+#: the generator training-mode dropout draws its masks from
+_generator: Optional[torch.Generator] = None
+
+
+@contextlib.contextmanager
+def dropout_generator(generator: Optional[torch.Generator]
+                      ) -> Iterator[None]:
+    """Draw every dropout mask inside the block from ``generator`` (on
+    the activations' device); the train step owns it, as the JAX step
+    owns the ``rng`` key it hands the layers."""
+    global _generator
+    saved, _generator = _generator, generator
+    try:
+        yield
+    finally:
+        _generator = saved
 
 
 class SpatialCrossMapLRN(Module):
@@ -29,8 +49,7 @@ class SpatialCrossMapLRN(Module):
         if squeeze:
             x = x[None]
         if x.ndim == 4:
-            out = cross_map_lrn_forward(x, self.size, self.alpha, self.beta,
-                                        self.k)
+            out = cross_map_lrn(x, self.size, self.alpha, self.beta, self.k)
             return out[0] if squeeze else out
         # rank > 4: generic channel-window version on every device, as in
         # the JAX package (normalization.py:200-210), which has no kernel
@@ -45,12 +64,22 @@ class SpatialCrossMapLRN(Module):
 
 class Dropout(Module):
     """Inverted dropout (``nn/Dropout.scala``): the identity in eval
-    mode; in training it zeroes with probability ``p`` and divides the
-    kept values by ``1 - p``."""
+    mode; in training it keeps each value with probability ``1 - p``
+    and, with ``scale``, divides the kept values by ``1 - p``.  The mask
+    comes from the generator of :func:`dropout_generator` (PyTorch's
+    default generator outside one)."""
 
-    def __init__(self, init_p: float = 0.5):
+    def __init__(self, init_p: float = 0.5, inplace: bool = False,
+                 scale: bool = True):
         super().__init__()
         self.p = init_p
+        self.scale = scale
 
     def forward(self, x):
-        return F.dropout(x, self.p, training=self.training)
+        if not self.training or self.p <= 0.0:
+            return x
+        u = torch.rand(x.shape, generator=_generator, device=x.device)
+        out = torch.where(u < 1.0 - self.p, x, 0.0)
+        if self.scale:
+            out = out / (1.0 - self.p)
+        return out

@@ -5,7 +5,9 @@ Torch ceil-mode semantics come from explicit asymmetric padding
 ceil overflow, and the last window must start inside the input plus the
 left pad.  Max pooling pads with -inf and runs ``F.max_pool2d`` with no
 padding of its own, which is the JAX package's ``reduce_window`` (no
-Pallas kernel runs there by default).  Average pooling goes through
+Pallas kernel runs there by default); its autograd sends each window's
+gradient to the first maximum in window order, as XLA's
+select-and-scatter does, and the padding never wins a window.  Average pooling goes through
 ``ops/pool.py``, whose divisor counts declared padding under
 ``count_include_pad`` and never counts the ceil overflow.
 """
@@ -18,7 +20,7 @@ from typing import Optional, Tuple
 import torch.nn.functional as F
 
 from bigdl_tpu_torch.nn.module import Module
-from bigdl_tpu_torch.ops.pool import avg_pool_forward, window_sum
+from bigdl_tpu_torch.ops.pool import avg_pool, window_sum
 
 __all__ = ["SpatialMaxPooling", "SpatialAveragePooling"]
 
@@ -112,5 +114,5 @@ class SpatialAveragePooling(SpatialMaxPooling):
         dims, strides, pads, declared = self._window(x)
         if not self.divide:
             return window_sum(x, dims, strides, pads)
-        return avg_pool_forward(x, dims, strides, pads, declared,
-                                self.count_include_pad)
+        return avg_pool(x, dims, strides, pads, declared,
+                        self.count_include_pad)

@@ -15,7 +15,7 @@ from typing import Any, Dict
 import torch
 
 __all__ = ["Module", "Container", "Sequential", "state_dict",
-           "load_state_dict"]
+           "parameters", "load_state_dict"]
 
 
 class Module(torch.nn.Module):
@@ -65,6 +65,13 @@ class Sequential(Container):
 def state_dict(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """``{path: tensor}`` of parameters and buffers, detached."""
     return dict(module.state_dict())
+
+
+def parameters(module: torch.nn.Module) -> Dict[str, torch.nn.Parameter]:
+    """``{path: parameter}`` of the live parameters, in ``state_dict``
+    key order (the JAX package's ``state_dict(model, kind="param")``)."""
+    own = dict(module.named_parameters())
+    return {k: own[k] for k in module.state_dict(keep_vars=True) if k in own}
 
 
 def load_state_dict(module: torch.nn.Module, state: Dict[str, Any],

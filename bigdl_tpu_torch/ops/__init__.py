@@ -2,3 +2,25 @@
 and the wrapper of its hand-written CUDA kernel (``csrc/``).  A CUDA
 tensor launches the kernel or raises; a CPU tensor runs the plain
 version."""
+
+from typing import Callable, Dict
+
+
+def kernel_wrappers() -> Dict[str, Callable]:
+    """Every kernel wrapper of the port, by kernel name."""
+    from bigdl_tpu_torch.ops import lrn, pool
+
+    return {"cross_map_lrn_fwd": lrn.cross_map_lrn_forward,
+            "cross_map_lrn_bwd": lrn.cross_map_lrn_backward,
+            "avg_pool_fwd": pool.avg_pool_forward,
+            "avg_pool_bwd": pool.avg_pool_backward}
+
+
+def kernel_launches() -> Dict[str, int]:
+    """Each wrapper's launch counter, by kernel name."""
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+def reset_kernel_launches() -> None:
+    for fn in kernel_wrappers().values():
+        fn.launches = 0

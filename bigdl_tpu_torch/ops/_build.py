@@ -35,7 +35,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 #: kernel sources, one shared library each
-SOURCES = ("lrn_fwd", "avg_pool_fwd")
+SOURCES = ("lrn_fwd", "lrn_bwd", "avg_pool_fwd", "avg_pool_bwd")
 _HEADERS = ("common.cuh",)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -45,8 +45,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "lrn_fwd": ("bigdl_cml_fwd",
                 [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _P]),
+    "lrn_bwd": ("bigdl_cml_bwd",
+                [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _P]),
     "avg_pool_fwd": ("bigdl_avg_pool_fwd",
                      [_P, _P, _P] + [_I] * 12 + [_P]),
+    "avg_pool_bwd": ("bigdl_avg_pool_bwd",
+                     [_P, _P] + [_I] * 12 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -1,8 +1,11 @@
-"""Torch-semantics average-pool forward: the CUDA kernel's wrapper and
-its plain PyTorch version (the port of ``bigdl_tpu/ops/pool_pallas.py``
-``avg_pool`` forward, Pallas kernel ``_avg_fwd_kernel``).
+"""Torch-semantics average pooling: the CUDA kernels' wrappers, their
+plain PyTorch versions, and the autograd function that joins them (the
+port of ``bigdl_tpu/ops/pool_pallas.py`` ``avg_pool``, Pallas kernels
+``_avg_fwd_kernel`` and ``_avg_bwd_kernel``).
 
-    y[o] = (sum of the window's taps, zero padding, order (dh, dw)) * inv[o]
+    y[o]  = (sum of the window's taps, zero padding, order (dh, dw)) * inv[o]
+    dx[q] = sum over the windows o that hold the padded position q of
+            wgt[o],  wgt = gy * inv               (the exact transpose)
 
 ``inv`` is the reciprocal divisor map of :func:`_np_inv_counts`, copied
 from the JAX package: under ``count_include_pad`` the declared padding
@@ -28,7 +31,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["avg_pool_forward", "avg_pool_plain", "window_sum",
+__all__ = ["avg_pool", "avg_pool_forward", "avg_pool_plain",
+           "avg_pool_backward", "avg_pool_backward_plain", "window_sum",
            "KERNEL_DTYPES"]
 
 #: dtypes the kernel reads and writes (its sums are f32)
@@ -105,11 +109,22 @@ def avg_pool_plain(x: torch.Tensor, dims, strides, pads: Pads, inv):
 
 @functools.lru_cache(maxsize=64)
 def _device_inv(key, device: torch.device) -> torch.Tensor:
-    """The [oh, ow] f32 inverse-count plane on ``device``, made once per
-    geometry (a host-to-device copy per call would stall the stream)."""
-    inv = _np_inv_counts(*key)
-    return torch.as_tensor(inv[0, 0], dtype=torch.float32,
-                           device=device).contiguous()
+    """The full [oh, ow] f32 inverse-count plane the kernel indexes, on
+    ``device``, made once per geometry (a host-to-device copy per call
+    would stall the stream).  An axis the window leaves alone (k 1,
+    stride 1, no padding) has extent 1 in the broadcast map and is
+    spread to its output extent here."""
+    oh, ow = _out_sizes(*key[:4])[2:]
+    plane = np.broadcast_to(_np_inv_counts(*key)[0, 0], (oh, ow))
+    return torch.as_tensor(np.array(plane, np.float32, order="C"),
+                           device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def _inv_tensor(key, device: torch.device, dtype: torch.dtype):
+    """The broadcast-shaped inverse-count map on ``device`` in ``dtype``,
+    made once per geometry."""
+    return torch.as_tensor(_np_inv_counts(*key), dtype=dtype, device=device)
 
 
 def _kernel_supported(x: torch.Tensor, dims, strides, inv) -> bool:
@@ -170,3 +185,111 @@ def avg_pool_forward(x: torch.Tensor, dims: Sequence[int],
 
 #: kernel launches made by this wrapper (and nowhere else)
 avg_pool_forward.launches = 0
+
+
+def avg_pool_backward_plain(wgt: torch.Tensor, x_shape, dims, strides,
+                            pads: Pads, dtype: torch.dtype) -> torch.Tensor:
+    """dx of the window sum from the out-grid weights ``wgt`` on any
+    device, after ``_avg_bwd_xla``: dilate ``wgt`` by the strides,
+    edge-pad it by k-1, take the stride-1 window sum, and slice off the
+    padding (input positions no window reaches get 0).  16-bit weights
+    sum in f32 and round dx to ``dtype``, as the kernel does."""
+    wf = wgt.float() if wgt.dtype in (torch.bfloat16, torch.float16) else wgt
+    dil = wf.new_zeros([(o - 1) * s + 1 for o, s in zip(wf.shape, strides)])
+    dil[tuple(slice(None, None, s) for s in strides)] = wf
+    full = window_sum(dil, dims, (1,) * len(dims),
+                      tuple((k - 1, k - 1) for k in dims))
+    # full covers padded positions [0, (o-1)*s + k); a floor-mode tail
+    # past the last window reads zeros
+    tail = [max(0, lo + n - f) for (lo, _), n, f
+            in zip(pads, x_shape, full.shape)]
+    if any(tail):
+        flat = []
+        for t in reversed(tail):
+            flat += [0, t]
+        full = F.pad(full, flat)
+    dx = full[tuple(slice(lo, lo + n) for (lo, _), n in zip(pads, x_shape))]
+    return dx.to(dtype)
+
+
+def avg_pool_backward(wgt: torch.Tensor, x_shape, dims, strides,
+                      pads: Pads, dtype: torch.dtype) -> torch.Tensor:
+    """dx of the window sum from the out-grid weights ``wgt``.  A CUDA
+    tensor launches the kernel (``csrc/avg_pool_bwd.cu``) or raises; a
+    CPU tensor, or a geometry the kernel does not take by structure,
+    runs :func:`avg_pool_backward_plain`."""
+    supported = (len(x_shape) == 4 and tuple(dims[:2]) == (1, 1)
+                 and tuple(strides[:2]) == (1, 1))
+    if not supported or wgt.device.type == "cpu":
+        return avg_pool_backward_plain(wgt, x_shape, dims, strides, pads,
+                                       dtype)
+    if wgt.device.type != "cuda":
+        raise RuntimeError(f"no average-pool kernel for device {wgt.device}")
+    from bigdl_tpu_torch.ops import _build
+
+    if wgt.dtype not in KERNEL_DTYPES or dtype != wgt.dtype:
+        raise TypeError(f"average-pool backward kernel takes one dtype of "
+                        f"{sorted(map(str, KERNEL_DTYPES))}, got "
+                        f"{wgt.dtype} -> {dtype}")
+    if not wgt.is_contiguous():
+        raise ValueError("average-pool backward kernel takes a contiguous "
+                         "NCHW gradient")
+    n, c, h, w = x_shape
+    oh, ow = wgt.shape[2:]
+    if tuple(wgt.shape[:2]) != (n, c) \
+            or [oh, ow] != _out_sizes(x_shape, dims, strides, pads)[2:]:
+        raise ValueError(f"gradient of shape {tuple(wgt.shape)} does not "
+                         f"match the pooling of {tuple(x_shape)}")
+    dx = torch.empty(tuple(x_shape), dtype=dtype, device=wgt.device)
+    if dx.numel() == 0:
+        return dx
+    lib = _build.library("avg_pool_bwd")
+    with torch.cuda.device(wgt.device):
+        stream = torch.cuda.current_stream(wgt.device).cuda_stream
+        err = lib.bigdl_avg_pool_bwd(
+            ctypes.c_void_p(wgt.data_ptr()), ctypes.c_void_p(dx.data_ptr()),
+            n * c, h, w, oh, ow, dims[2], dims[3], strides[2], strides[3],
+            pads[2][0], pads[3][0], KERNEL_DTYPES[dtype],
+            ctypes.c_void_p(stream))
+    _build.check(lib, err, "average-pool backward")
+    avg_pool_backward.launches += 1
+    return dx
+
+
+#: kernel launches made by this wrapper (and nowhere else)
+avg_pool_backward.launches = 0
+
+
+class _AvgPool(torch.autograd.Function):
+    """The op is linear in x: the forward keeps only x's shape and dtype
+    (``pool_pallas.py:472-478``); the backward forms ``wgt = gy * inv``
+    in gy's dtype and launches the kernel (``_avg_vjp_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, dims, strides, pads, declared, count_include_pad):
+        ctx.key = (tuple(x.shape), tuple(dims), tuple(strides),
+                   tuple(map(tuple, pads)), tuple(map(tuple, declared)),
+                   bool(count_include_pad))
+        ctx.x_dtype = x.dtype
+        return avg_pool_forward(x, dims, strides, pads, declared,
+                                count_include_pad)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x_shape, dims, strides, pads = ctx.key[:4]
+        wgt = (gy * _inv_tensor(ctx.key, gy.device, gy.dtype)).contiguous()
+        dx = avg_pool_backward(wgt, x_shape, dims, strides, pads, ctx.x_dtype)
+        return dx, None, None, None, None, None
+
+
+def avg_pool(x: torch.Tensor, dims: Sequence[int], strides: Sequence[int],
+             pads: Pads, declared: Pads, count_include_pad: bool
+             ) -> torch.Tensor:
+    """Differentiable Torch-semantics average pooling (see
+    :func:`avg_pool_forward`).  Without a gradient to take it is one
+    forward launch."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AvgPool.apply(x, dims, strides, pads, declared,
+                              count_include_pad)
+    return avg_pool_forward(x, dims, strides, pads, declared,
+                            count_include_pad)

@@ -22,18 +22,11 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from bigdl_tpu_torch.device import resolve_device
+from bigdl_tpu_torch.device import resolve_device, strict_f32
 from bigdl_tpu_torch.nn.module import state_dict
 from bigdl_tpu_torch.serving.buckets import BucketPolicy
 
-__all__ = ["BucketedExecutor", "strict_f32"]
-
-
-def strict_f32() -> None:
-    """Make f32 mean f32 on the card: cuDNN convolutions default to TF32
-    (about three decimal digits); matmuls are switched off too."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+__all__ = ["BucketedExecutor"]
 
 
 class BucketedExecutor:

@@ -1,5 +1,5 @@
 """Weights across packages: the JAX package's ``state_dict`` (as numpy)
-into the port's.
+into the port's, and the port's back out as numpy.
 
 Both packages name every parameter by the same module path
 (``0.0.weight``) and keep the same layouts (OIHW convolution weights,
@@ -13,7 +13,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["from_jax_state"]
+__all__ = ["from_jax_state", "to_numpy_state"]
 
 
 def from_jax_state(state: Dict[str, np.ndarray], device,
@@ -35,3 +35,10 @@ def from_jax_state(state: Dict[str, np.ndarray], device,
     # np.array copies: JAX arrays are read-only and torch wants writable
     return {k: torch.from_numpy(np.array(v)).to(device)
             for k, v in state.items()}
+
+
+def to_numpy_state(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """``{path: ndarray}`` of ``model``'s parameters and buffers, on the
+    host, in ``state_dict`` order: the reverse of :func:`from_jax_state`,
+    in the form the JAX package's ``load_state_dict`` takes."""
+    return {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}

@@ -10,11 +10,14 @@ line per phase; any failure ends it with a non-zero exit and no result:
 1. build   -- compiles ``bigdl_tpu_torch/csrc/*.cu`` for sm_90a (one
               nvcc per source, started together) and prints ptxas's
               register and spill report.
-2. kernels -- each kernel at the serving shapes of batch 8, in f32 and
-              bf16, held against its plain PyTorch version on the card
-              (f32 at rtol 1e-5 / atol 1e-6, bf16 at 2e-2), and timed
-              beside its plain version, a one-call PyTorch yardstick that
-              the port never calls, and its bound.
+2. kernels -- each kernel held against its plain PyTorch version on the
+              card (f32 at rtol 1e-5 / atol 1e-6, bf16 at 2e-2) and
+              timed beside its plain version, a one-call PyTorch
+              yardstick that the port never calls, and its bound, in f32
+              and bf16: the forward kernels at the serving shapes of
+              batch 8, and every kernel at the training shapes of batch
+              256, where the LRN forward also writes ``den`` (checked
+              too) for its backward.
 3. serve   -- full-width Inception-v1 (1000 classes, seeded weights)
               served by the port's ModelServer with bf16 weights and f32
               compute, buckets 1,2,4,8, max-wait 2 ms; concurrent
@@ -22,16 +25,29 @@ line per phase; any failure ends it with a non-zero exit and no result:
               run through the plain-version forward on the card (1e-4),
               and the kernel wrappers' launch counts show the served
               forwards went through the kernels.
+4. train   -- (a) one f32 SGD step of full-width Inception-v1 (no
+              dropout, batch 8, TF32 off, deterministic cuDNN) through
+              the kernels, against the same step through the plain
+              versions: losses to 1e-5 relative, parameters to 1e-4.
+              (b) the main path: ``python -m bigdl_tpu_torch.models.cli
+              perf --model inception_v1 -b 256 --warmup 3 -i 10`` (bf16,
+              dropout on) in a subprocess; every loss finite, the last
+              three below the first three on the fixed batch, and the
+              launches per step 2/2/1/1 (LRN forward and backward,
+              average-pool forward and backward).  (c) where a step's
+              time goes at batch 256: forward, backward and optimizer.
 
-Then the kernel summary line, the card's name and power limit, and the
+Then the card's name and power limit, the kernel summary line, and the
 last line ``{"ok": true, "device": {...}}``.  It exits non-zero when
 CUDA is unavailable, and in a directory that holds nothing of the repo.
 
 Kernel times are device times: each timed op runs as a CUDA graph of
 many launches over rotating copies of its input that together exceed
-the 50 MB L2 cache, timed with CUDA events.  Bounds use the H100 SXM
+the 50 MB L2 cache, timed with CUDA events (the backward of
+``F.local_response_norm``, an autograd graph, is timed with events
+around plain calls; each takes milliseconds).  Bounds use the H100 SXM
 data-sheet peaks: 3.35 TB/s of HBM and 67 TFLOP/s of f32 outside the
-tensor cores (both kernels compute in f32).
+tensor cores (every kernel computes in f32).
 """
 
 from __future__ import annotations
@@ -54,6 +70,10 @@ F32_FLOPS_PER_S = 67e12
 L2_BYTES = 50e6
 SEED = 1
 BATCH = 8
+TRAIN_BATCH = 256
+#: kernel launches of one Inception-v1 train step, by kernel
+PER_STEP = {"cross_map_lrn_fwd": 2, "cross_map_lrn_bwd": 2,
+            "avg_pool_fwd": 1, "avg_pool_bwd": 1}
 
 
 def emit(obj) -> None:
@@ -72,19 +92,20 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 def graph_ms(torch, fn, inputs, launches: int, replays: int = 5) -> float:
-    """Mean device milliseconds of one ``fn`` call: ``launches`` calls
-    over the rotating ``inputs`` captured as one CUDA graph, replayed."""
+    """Mean device milliseconds of one ``fn(*args)`` call: ``launches``
+    calls over the rotating argument tuples ``inputs`` captured as one
+    CUDA graph, replayed."""
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
-        for x in inputs[:3]:  # warm: builds, lazy module loads, caches
-            fn(x)
+        for args in inputs[:3]:  # warm: builds, lazy module loads, caches
+            fn(*args)
     torch.cuda.current_stream().wait_stream(stream)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for i in range(launches):
-            fn(inputs[i % len(inputs)])
+            fn(*inputs[i % len(inputs)])
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -94,14 +115,34 @@ def graph_ms(torch, fn, inputs, launches: int, replays: int = 5) -> float:
         graph.replay()
     end.record()
     end.synchronize()
+    del graph
     return start.elapsed_time(end) / (replays * launches)
 
 
-def rotating_copies(x, torch):
-    """Enough copies of ``x`` that a pass over them exceeds twice the L2
-    cache, so each timed launch reads its input from HBM."""
-    n = min(64, max(2, math.ceil(2 * L2_BYTES / (x.numel() * x.element_size()))))
-    return [x.clone() for _ in range(n)]
+def event_ms(torch, fn, inputs, calls: int = 10) -> float:
+    """Mean device milliseconds of one ``fn(*args)`` call, eagerly
+    launched over the rotating ``inputs`` between two CUDA events (for
+    calls of milliseconds, which a graph cannot capture)."""
+    for args in inputs[:2]:
+        fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(calls):
+        fn(*inputs[i % len(inputs)])
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def rotating_copies(args, torch):
+    """Enough copies of the argument tuple ``args`` that a pass over
+    them exceeds twice the L2 cache, so each timed launch reads its
+    inputs from HBM."""
+    nbytes = sum(a.numel() * a.element_size() for a in args)
+    n = min(64, max(2, math.ceil(2 * L2_BYTES / nbytes)))
+    return [tuple(a.clone() for a in args) for _ in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -128,50 +169,106 @@ def phase_build():
     return card
 
 
-def _lrn_cases(torch):
+LRN_HYPER = (5, 1e-4, 0.75, 1.0)  # size, alpha, beta, k: inception.py:64,69
+LRN_SITES = (("pool1/norm1", 64), ("conv2/norm2", 192))  # channels at 56x56
+
+
+def _lrn_cases(torch, path, batch):
+    """The LRN forward as ``path`` calls it: serving wants y alone, the
+    train step y and ``den``, which its backward reads."""
     from bigdl_tpu_torch.ops import lrn
 
-    size, alpha, beta, k = 5, 1e-4, 0.75, 1.0  # inception.py:64,69
+    size, alpha, beta, k = LRN_HYPER
+    want_den = path == "train"
+
+    def make(gen, shape, dtype):
+        return (torch.randn(shape, generator=gen, device="cuda").to(dtype),)
 
     def kernel(x):
-        return lrn.cross_map_lrn_forward(x, size, alpha, beta, k)
+        return lrn.cross_map_lrn_forward(x, size, alpha, beta, k,
+                                         want_den=want_den)
 
     def plain(x):
-        return lrn.cross_map_lrn_plain(x, size, alpha, beta, k)[0]
+        y, den = lrn.cross_map_lrn_plain(x, size, alpha, beta, k)
+        return (y, den) if want_den else y
 
     def library(x):
         return torch.nn.functional.local_response_norm(x, size, alpha, beta, k)
 
     def bound(x):
-        nbytes = 2 * x.numel() * x.element_size()
+        # x in; y, and den where it is written, out
+        nbytes = (3 if want_den else 2) * x.numel() * x.element_size()
         flops = x.numel() * (2 * size + 5)
         return nbytes, flops
 
-    return [dict(name="cross_map_lrn_fwd", site=site, shape=shape,
-                 kernel=kernel, plain=plain, library=library, bound=bound)
-            for site, shape in (("pool1/norm1", (BATCH, 64, 56, 56)),
-                                ("conv2/norm2", (BATCH, 192, 56, 56)))]
+    return [dict(name="cross_map_lrn_fwd", path=path, site=site,
+                 shape=(batch, c, 56, 56), make=make, kernel=kernel,
+                 plain=plain, library=library, bound=bound)
+            for site, c in LRN_SITES]
 
 
-def _pool_cases(torch):
+def _lrn_bwd_cases(torch):
+    from bigdl_tpu_torch.ops import lrn
+
+    size, alpha, beta, k = LRN_HYPER
+    F = torch.nn.functional
+
+    def make(gen, shape, dtype):
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        den = lrn.cross_map_lrn_plain(x, size, alpha, beta, k)[1]
+        g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        return x, den, g
+
+    def kernel(x, den, g):
+        return lrn.cross_map_lrn_backward(x, den, g, size, alpha, beta)
+
+    def plain(x, den, g):
+        return lrn.cross_map_lrn_backward_plain(x, den, g, size, alpha, beta)
+
+    def library_inputs(x, den, g):
+        # the graph of F.local_response_norm is built here, outside the
+        # timed region; the timed call is its backward alone
+        xr = x.detach().clone().requires_grad_()
+        return F.local_response_norm(xr, size, alpha, beta, k), xr, g
+
+    def library(y, xr, g):
+        return torch.autograd.grad(y, xr, g, retain_graph=True)[0]
+
+    def bound(x, den, g):
+        nbytes = 4 * x.numel() * x.element_size()  # x, den, g in; dx out
+        flops = x.numel() * (size + 11)
+        return nbytes, flops
+
+    return [dict(name="cross_map_lrn_bwd", path="train", site=site,
+                 shape=(TRAIN_BATCH, c, 56, 56), make=make, kernel=kernel,
+                 plain=plain, library=library, library_inputs=library_inputs,
+                 bound=bound)
+            for site, c in LRN_SITES]
+
+
+def _head_geometry(torch, shape):
     from bigdl_tpu_torch.nn.layers.pooling import SpatialAveragePooling
+
+    layer = SpatialAveragePooling(7, 7, 1, 1)  # inception.py:88
+    return layer._window(torch.empty(shape, device="meta"))
+
+
+def _pool_cases(torch, path, batch):
     from bigdl_tpu_torch.ops import pool
 
-    shape = (BATCH, 1024, 7, 7)
-    layer = SpatialAveragePooling(7, 7, 1, 1)  # inception.py:88
-    probe = torch.empty(shape, device="meta")
-    dims, strides, pads, declared = layer._window(probe)
+    shape = (batch, 1024, 7, 7)
+    dims, strides, pads, declared = _head_geometry(torch, shape)
     inv = pool._np_inv_counts(shape, dims, strides, pads, declared, True)
-    inv_dev = {}
+    inv_dev = torch.as_tensor(inv, dtype=torch.float32, device="cuda")
+
+    def make(gen, shape, dtype):
+        return (torch.randn(shape, generator=gen, device="cuda").to(dtype),)
 
     def kernel(x):
         return pool.avg_pool_forward(x, dims, strides, pads, declared, True)
 
     def plain(x):
-        if x.device not in inv_dev:
-            inv_dev[x.device] = torch.as_tensor(inv, dtype=torch.float32,
-                                                device=x.device)
-        return pool.avg_pool_plain(x, dims, strides, pads, inv_dev[x.device])
+        return pool.avg_pool_plain(x, dims, strides, pads, inv_dev)
 
     def library(x):
         return torch.nn.functional.avg_pool2d(x, 7, 1)
@@ -182,67 +279,158 @@ def _pool_cases(torch):
         flops = out * (49 + 1)
         return nbytes, flops
 
-    return [dict(name="avg_pool_fwd", site="head 7x7 s1", shape=shape,
-                 kernel=kernel, plain=plain, library=library, bound=bound)]
+    return [dict(name="avg_pool_fwd", path=path, site="head 7x7 s1",
+                 shape=shape, make=make, kernel=kernel, plain=plain,
+                 library=library, bound=bound)]
+
+
+def _pool_bwd_cases(torch):
+    from bigdl_tpu_torch.ops import pool
+
+    shape = (TRAIN_BATCH, 1024, 7, 7)
+    dims, strides, pads, declared = _head_geometry(torch, shape)
+    out_shape = (TRAIN_BATCH, 1024, 1, 1)
+
+    def make(gen, _shape, dtype):
+        wgt = torch.randn(out_shape, generator=gen, device="cuda").to(dtype)
+        x = torch.empty(shape, dtype=dtype, device="cuda")  # library only
+        return wgt, x
+
+    def kernel(wgt, x):
+        return pool.avg_pool_backward(wgt, shape, dims, strides, pads,
+                                      wgt.dtype)
+
+    def plain(wgt, x):
+        return pool.avg_pool_backward_plain(wgt, shape, dims, strides, pads,
+                                            wgt.dtype)
+
+    def library(wgt, x):
+        # the same gradient from gy = 49 * wgt: aten divides by the count
+        return torch.ops.aten.avg_pool2d_backward(
+            wgt, x, [7, 7], [1, 1], [0, 0], False, True, None)
+
+    def bound(wgt, x):
+        nbytes = (wgt.numel() + x.numel()) * wgt.element_size()
+        flops = x.numel()  # one window holds each position
+        return nbytes, flops
+
+    return [dict(name="avg_pool_bwd", path="train", site="head 7x7 s1",
+                 shape=shape, make=make, kernel=kernel, plain=plain,
+                 library=library, bound=bound)]
 
 
 def phase_kernels(torch):
-    """Accuracy and timing of every kernel at the serving shapes."""
+    """Accuracy and timing of every kernel at the shapes of each main
+    path that launches it."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    for case in _lrn_cases(torch) + _pool_cases(torch):
+    cases = (_lrn_cases(torch, "serve", BATCH)
+             + _pool_cases(torch, "serve", BATCH)
+             + _lrn_cases(torch, "train", TRAIN_BATCH)
+             + _pool_cases(torch, "train", TRAIN_BATCH)
+             + _lrn_bwd_cases(torch) + _pool_bwd_cases(torch))
+    for case in cases:
         for dtype, tol in ((torch.float32, dict(rtol=1e-5, atol=1e-6)),
                            (torch.bfloat16, dict(rtol=2e-2, atol=2e-2))):
-            x = torch.randn(case["shape"], generator=gen, device="cuda").to(dtype)
-            got = case["kernel"](x)
-            want = case["plain"](x)
+            args = case["make"](gen, case["shape"], dtype)
+            got = case["kernel"](*args)
+            want = case["plain"](*args)
             torch.cuda.synchronize()
             torch.testing.assert_close(got, want, **tol)
-            err = (got.float() - want.float()).abs().max().item()
-            copies = rotating_copies(x, torch)
+            if isinstance(got, torch.Tensor):
+                got, want = (got,), (want,)
+            err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip(got, want))
+            del got, want
+            copies = rotating_copies(args, torch)
             launches = max(len(copies), 20)
-            nbytes, flops = case["bound"](x)
+            nbytes, flops = case["bound"](*args)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flops / F32_FLOPS_PER_S * 1e3
-            row = {"name": case["name"], "site": case["site"],
+            ms = graph_ms(torch, case["kernel"], copies, launches)
+            plain_ms = graph_ms(torch, case["plain"], copies, launches)
+            if "library_inputs" in case:
+                lib_args = [case["library_inputs"](*a) for a in copies]
+                library_ms = event_ms(torch, case["library"], lib_args)
+                del lib_args
+            else:
+                library_ms = graph_ms(torch, case["library"], copies,
+                                      launches)
+            row = {"name": case["name"], "path": case["path"],
+                   "site": case["site"],
                    "shape": list(case["shape"]), "dtype": str(dtype)[6:],
-                   "max_abs_err": err, "tolerance": tol,
-                   "ms": graph_ms(torch, case["kernel"], copies, launches),
-                   "plain_ms": graph_ms(torch, case["plain"], copies, launches),
-                   "library_ms": graph_ms(torch, case["library"], copies,
-                                          launches),
+                   "max_abs_err": err, "tolerance": tol, "ms": ms,
+                   "plain_ms": plain_ms, "library_ms": library_ms,
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                    "bytes": nbytes, "flops": flops}
             emit({"phase": "kernels", **row})
             rows.append(row)
-            del copies
+            del copies, args
+            torch.cuda.empty_cache()
     return rows
 
 
+def _plain_lrn(torch):
+    """Cross-map LRN through its plain versions, forward and backward."""
+    from bigdl_tpu_torch.ops import lrn
+
+    class PlainLRN(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, size, alpha, beta, k):
+            y, den = lrn.cross_map_lrn_plain(x, size, alpha, beta, k)
+            ctx.save_for_backward(x, den)
+            ctx.hyper = (size, alpha, beta)
+            return y
+
+        @staticmethod
+        def backward(ctx, g):
+            x, den = ctx.saved_tensors
+            dx = lrn.cross_map_lrn_backward_plain(x, den, g.contiguous(),
+                                                  *ctx.hyper)
+            return dx, None, None, None, None
+
+    return PlainLRN.apply
+
+
+def _plain_avg_pool(torch):
+    """Average pooling through its plain versions, forward and backward."""
+    from bigdl_tpu_torch.ops import pool
+
+    class PlainAvgPool(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, dims, strides, pads, declared, cip):
+            ctx.key = (tuple(x.shape), tuple(dims), tuple(strides),
+                       tuple(pads), tuple(declared), cip)
+            ctx.x_dtype = x.dtype
+            inv = pool._np_inv_counts(*ctx.key)
+            return pool.avg_pool_plain(x, dims, strides, pads, inv)
+
+        @staticmethod
+        def backward(ctx, gy):
+            inv = torch.as_tensor(pool._np_inv_counts(*ctx.key),
+                                  dtype=gy.dtype, device=gy.device)
+            dx = pool.avg_pool_backward_plain(gy * inv, *ctx.key[:4],
+                                              ctx.x_dtype)
+            return dx, None, None, None, None, None
+
+    return PlainAvgPool.apply
+
+
 @contextlib.contextmanager
-def plain_versions():
-    """Route the layers of the serving path to the plain versions of
-    their kernels (the reference forward on the card).  Lives here and
+def plain_versions(torch):
+    """Route the layers to the plain versions of their kernels, forward
+    and backward (the reference model on the card).  Lives here and
     nowhere in the package: the package never swaps a kernel out."""
     from bigdl_tpu_torch.nn.layers import normalization, pooling
-    from bigdl_tpu_torch.ops import lrn, pool
 
-    def lrn_plain(x, size, alpha, beta, k, want_den=False):
-        return lrn.cross_map_lrn_plain(x, size, alpha, beta, k)[0]
-
-    def avg_plain(x, dims, strides, pads, declared, cip):
-        inv = pool._np_inv_counts(tuple(x.shape), tuple(dims), tuple(strides),
-                                  tuple(pads), tuple(declared), cip)
-        return pool.avg_pool_plain(x, dims, strides, pads, inv)
-
-    saved = normalization.cross_map_lrn_forward, pooling.avg_pool_forward
-    normalization.cross_map_lrn_forward, pooling.avg_pool_forward = \
-        lrn_plain, avg_plain
+    saved = normalization.cross_map_lrn, pooling.avg_pool
+    normalization.cross_map_lrn = _plain_lrn(torch)
+    pooling.avg_pool = _plain_avg_pool(torch)
     try:
         yield
     finally:
-        normalization.cross_map_lrn_forward, pooling.avg_pool_forward = saved
+        normalization.cross_map_lrn, pooling.avg_pool = saved
 
 
 def _post(port, body: bytes):
@@ -260,7 +448,7 @@ def _post(port, body: bytes):
 
 def phase_serve(torch, card: str):
     from bigdl_tpu_torch.models import registry
-    from bigdl_tpu_torch.ops import lrn, pool
+    from bigdl_tpu_torch.ops import kernel_launches, reset_kernel_launches
     from bigdl_tpu_torch.serving import serve_model
 
     t0 = time.perf_counter()
@@ -285,9 +473,8 @@ def phase_serve(torch, card: str):
         def client(i):
             results[i] = _post(server.port, bodies[i])
 
-        # the main path: counts at 0 just before, read just after
-        lrn.cross_map_lrn_forward.launches = 0
-        pool.avg_pool_forward.launches = 0
+        # the serving path: counts at 0 just before, read just after
+        reset_kernel_launches()
         t_burst = time.perf_counter()
         for wave in (range(0, 16), range(16, 32)):  # 16 concurrent each
             threads = [threading.Thread(target=client, args=(i,)) for i in wave]
@@ -298,8 +485,7 @@ def phase_serve(torch, card: str):
                 if t.is_alive():
                     raise RuntimeError("a request did not return in 600 s")
         burst_s = time.perf_counter() - t_burst
-        launches = {"cross_map_lrn_fwd": lrn.cross_map_lrn_forward.launches,
-                    "avg_pool_fwd": pool.avg_pool_forward.launches}
+        launches = kernel_launches()
         st = server.status()
 
         health = urllib.request.urlopen(
@@ -307,7 +493,7 @@ def phase_serve(torch, card: str):
         if health != 200:
             raise RuntimeError(f"/healthz answered {health}")
         max_err = 0.0
-        with plain_versions():
+        with plain_versions(torch):
             for x, (code, doc, _) in zip(xs, results):
                 if code != 200:
                     raise RuntimeError(f"predict answered {code}: {doc}")
@@ -319,12 +505,12 @@ def phase_serve(torch, card: str):
                     torch.from_numpy(x).cuda()).cpu().numpy()
                 np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
                 max_err = max(max_err, float(np.abs(out - ref).max()))
-        if (lrn.cross_map_lrn_forward.launches,
-                pool.avg_pool_forward.launches) != tuple(launches.values()):
+        if kernel_launches() != launches:
             raise RuntimeError("the plain-version reference reached a kernel")
         batches = st["batches"]
         if launches["cross_map_lrn_fwd"] < 2 * batches \
-                or launches["avg_pool_fwd"] < batches or batches < 1:
+                or launches["avg_pool_fwd"] < batches or batches < 1 \
+                or launches["cross_map_lrn_bwd"] or launches["avg_pool_bwd"]:
             raise RuntimeError(f"kernel launches {launches} for {batches} "
                                f"batches: the served forward missed a kernel")
     finally:
@@ -378,6 +564,165 @@ def serve_breakdown(torch, server, bodies, reps: int = 10):
     return out
 
 
+def _train_parity(torch):
+    """(a) One f32 SGD step of full-width Inception-v1 through the
+    kernels against the same step through their plain versions."""
+    import copy
+
+    from bigdl_tpu_torch.models.inception import build_inception_v1
+    from bigdl_tpu_torch.nn.criterion import ClassNLLCriterion
+    from bigdl_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from bigdl_tpu_torch.optim import SGD
+    from bigdl_tpu_torch.parallel import TrainStep
+
+    torch.backends.cudnn.deterministic = True
+    model = build_inception_v1(
+        1000, has_dropout=False, generator=torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.normal(size=(BATCH, 3, 224, 224))
+                         .astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, 1000, BATCH)).cuda()
+
+    def step(m):
+        return TrainStep(m, ClassNLLCriterion(),
+                         SGD(learning_rate=0.01, momentum=0.9),
+                         device="cuda")
+
+    ref = step(copy.deepcopy(model))
+    run = step(model)
+    reset_kernel_launches()
+    loss = run.run(x, y)
+    launches = kernel_launches()
+    if launches != PER_STEP:
+        raise RuntimeError(f"one train step launched {launches}, "
+                           f"expected {PER_STEP}")
+    with plain_versions(torch):
+        want = ref.run(x, y)
+    if kernel_launches() != launches:
+        raise RuntimeError("the plain-version step reached a kernel")
+    torch.backends.cudnn.deterministic = False
+    if not (math.isfinite(loss) and abs(loss - want) <= 1e-5 * abs(want)):
+        raise RuntimeError(f"step loss {loss} against plain {want}")
+    max_err = 0.0
+    for k, p in run.params.items():
+        torch.testing.assert_close(p, ref.params[k], rtol=1e-4, atol=1e-6)
+        max_err = max(max_err, (p - ref.params[k]).abs().max().item())
+    return {"batch": BATCH, "dtype": "float32", "loss": loss,
+            "loss_plain": want, "param_max_abs_err": max_err,
+            "launches": launches}
+
+
+def _train_main_path(root: str):
+    """(b) ``cli perf`` at batch 256 in a subprocess: its JSON report and
+    its records/sec line."""
+    warmup, iters = 3, 10
+    cmd = [sys.executable, "-m", "bigdl_tpu_torch.models.cli", "perf",
+           "--model", "inception_v1", "-b", str(TRAIN_BATCH),
+           "--warmup", str(warmup), "-i", str(iters)]
+    env = dict(os.environ, PYTHONPATH=root)
+    out = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                         text=True, timeout=600)
+    if out.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd[1:])} exited {out.returncode}:\n"
+                           f"{out.stdout[-4000:]}\n{out.stderr[-4000:]}")
+    lines = out.stdout.strip().splitlines()
+    report = json.loads(lines[-2])
+    last = lines[-1]
+    if not last.startswith("inception_v1: ") or "records/sec" not in last:
+        raise RuntimeError(f"unexpected last line {last!r}")
+    losses = report["losses"]
+    steps = warmup + iters
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"losses {losses}")
+    first, tail = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    if not tail < first:
+        raise RuntimeError(f"the loss did not fall on the fixed batch: "
+                           f"{losses}")
+    want = {k: v * steps for k, v in PER_STEP.items()}
+    if report["launches"] != want:
+        raise RuntimeError(f"{steps} steps launched {report['launches']}, "
+                           f"expected {want}")
+    report["records_per_s"] = float(last.split()[1])
+    report["last_line"] = last
+    return report
+
+
+def _train_breakdown(torch, steps: int = 5):
+    """(c) Median host-clock milliseconds (synchronised) of the forward
+    with the loss, the backward, and the optimizer update of one bf16
+    step at batch 256, dropout on, as ``cli perf`` builds it."""
+    from bigdl_tpu_torch.models import registry
+    from bigdl_tpu_torch.nn.criterion import ClassNLLCriterion
+    from bigdl_tpu_torch.optim import SGD
+    from bigdl_tpu_torch.parallel import TrainStep
+
+    model = registry.build_model("inception_v1", 1000,
+                                 generator=torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(TRAIN_BATCH, 3, 224, 224))
+                         .astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, 1000, TRAIN_BATCH)).cuda()
+    step = TrainStep(model, ClassNLLCriterion(),
+                     SGD(learning_rate=0.01, momentum=0.9),
+                     compute_dtype=torch.bfloat16, device="cuda")
+    times = {"forward_ms": [], "backward_ms": [], "optimizer_ms": [],
+             "step_ms": []}
+    for i in range(steps + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step.loss(x, y, torch.Generator("cuda").manual_seed(i))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = step.grads(loss)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        step.update(grads)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        if i >= 2:  # the first two build caches and pick algorithms
+            for k, v in (("forward_ms", t1 - t0), ("backward_ms", t2 - t1),
+                         ("optimizer_ms", t3 - t2), ("step_ms", t3 - t0)):
+                times[k].append(v * 1e3)
+    return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+
+
+def phase_train(torch, card: str, root: str):
+    parity = _train_parity(torch)
+    torch.cuda.empty_cache()
+    report = _train_main_path(root)
+    breakdown = _train_breakdown(torch)
+    torch.cuda.empty_cache()
+    row = {"phase": "train", "ok": True, "model": "inception_v1",
+           "parity": parity, "batch": TRAIN_BATCH, "compute": "bf16",
+           "losses": report["losses"], "launches": report["launches"],
+           "launches_per_step": PER_STEP,
+           "records_per_s": report["records_per_s"],
+           "step_ms": report["step_ms"],
+           "max_memory_allocated": report["max_memory_allocated"],
+           "breakdown_ms": breakdown, "last_line": report["last_line"],
+           "card": card}
+    emit(row)
+    return report["launches"]
+
+
+def path_summary(rows, dtype: str, launches: int, per: str) -> dict:
+    """One kernel on one path: its launches there, and the sum over the
+    path's call sites of the times and the bound in the path's dtype
+    (the error is the worst over both dtypes)."""
+    sites = [r for r in rows if r["dtype"] == dtype]
+    t_bytes = sum(r["bytes"] for r in sites) / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(r["flops"] for r in sites) / F32_FLOPS_PER_S * 1e3
+    return {"launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": sum(r["ms"] for r in sites),
+            "plain_ms": sum(r["plain_ms"] for r in sites),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": sum(r["library_ms"] for r in sites),
+            "per": f"{per}, {dtype}: " + ", ".join(
+                f"{r['site']} {r['shape']}" for r in sites)}
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -388,32 +733,41 @@ def main() -> int:
         return 2
     import bigdl_tpu_torch  # noqa: F401 - fails outside a checkout
 
+    root = os.path.dirname(os.path.abspath(__file__))
     card = phase_build()
     rows = phase_kernels(torch)
-    launches = phase_serve(torch, card)
+    serve_launches = phase_serve(torch, card)
+    launches = phase_train(torch, card, root)
 
-    summary = []
+    # each path's numbers come from its own shapes and dtype: serving
+    # runs the forwards in f32 at batch 8, training every kernel in bf16
+    # at batch 256 (the slice's main path, whose entry leads each row)
+    paths = {"train": (launches, "bfloat16",
+                       f"one train step at batch {TRAIN_BATCH}"),
+             "serve": (serve_launches, "float32",
+                       f"one served forward at batch {BATCH}")}
     meta = {"cross_map_lrn_fwd": ("bigdl_tpu_torch/csrc/lrn_fwd.cu",
                                   "bigdl_tpu/ops/lrn_pallas.py:103"),
             "avg_pool_fwd": ("bigdl_tpu_torch/csrc/avg_pool_fwd.cu",
-                             "bigdl_tpu/ops/pool_pallas.py:175")}
+                             "bigdl_tpu/ops/pool_pallas.py:175"),
+            "cross_map_lrn_bwd": ("bigdl_tpu_torch/csrc/lrn_bwd.cu",
+                                  "bigdl_tpu/ops/lrn_pallas.py:115"),
+            "avg_pool_bwd": ("bigdl_tpu_torch/csrc/avg_pool_bwd.cu",
+                             "bigdl_tpu/ops/pool_pallas.py:183")}
+    summary = []
     for name, (source, replaces) in meta.items():
-        mine = [r for r in rows if r["name"] == name]
-        f32 = [r for r in mine if r["dtype"] == "float32"]
-        t_bytes = sum(r["bytes"] for r in f32) / HBM_BYTES_PER_S * 1e3
-        t_ops = sum(r["flops"] for r in f32) / F32_FLOPS_PER_S * 1e3
-        # per served forward at batch 8, f32: the sum over its call sites
-        summary.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": sum(r["ms"] for r in f32),
-            "plain_ms": sum(r["plain_ms"] for r in f32),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": sum(r["library_ms"] for r in f32),
-            "per": "one served forward at batch 8, f32: "
-                   + ", ".join(f"{r['site']} {r['shape']}" for r in f32)})
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces}
+        for path, (counts, dtype, per) in paths.items():
+            mine = [r for r in rows if r["name"] == name and r["path"] == path]
+            if not mine:
+                continue
+            entry_path = path_summary(mine, dtype, counts[name], per)
+            if path == "train":
+                entry.update(entry_path)
+            else:
+                entry[path] = entry_path
+        summary.append(entry)
     print(card, flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",

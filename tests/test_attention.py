@@ -64,7 +64,8 @@ def seq_mesh():
     return Mesh(devs, ("seq",))
 
 
-@pytest.mark.parametrize("strategy", ["ring", "ulysses"])
+@pytest.mark.parametrize(
+    "strategy", [pytest.param("ring", marks=pytest.mark.slow), "ulysses"])
 @pytest.mark.parametrize("causal", [False, True])
 def test_sequence_parallel_matches_dense(seq_mesh, strategy, causal):
     # heads divisible by 8 for ulysses; seq sharded 8 ways
@@ -77,6 +78,7 @@ def test_sequence_parallel_matches_dense(seq_mesh, strategy, causal):
                                rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.slow
 def test_data_x_seq_ring_matches_dense():
     """Ring attention composed with data parallelism on a (data, seq)
     mesh: batch shards over 'data', each data row runs its own k/v ring
@@ -106,6 +108,7 @@ def test_data_x_seq_ring_matches_dense():
                                    rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.slow
 def test_ring_attention_differentiable(seq_mesh):
     q, k, v = _rand_qkv(b=1, h=2, s=32, d=8, seed=3)
     fn = make_sequence_parallel_attention(seq_mesh, strategy="ring",

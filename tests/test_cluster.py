@@ -327,7 +327,7 @@ def test_supervisor_clears_fault_plan_on_restart(tmp_path, monkeypatch):
 
 
 # -- interruptible retry backoff ---------------------------------------------
-@pytest.mark.deadline(120)
+@pytest.mark.deadline(60)
 def test_sigterm_interrupts_retry_backoff(tmp_path, monkeypatch):
     """Satellite bugfix: a SIGTERM during the retry-backoff sleep used
     to wait out the FULL sleep before the grace handler could act.  Now
@@ -430,7 +430,7 @@ def _assert_same_params(path_a: str, path_b: str, tol=1e-6):
                                    err_msg=f"param {k} diverged")
 
 
-@pytest.mark.deadline(240)
+@pytest.mark.deadline(66)
 def test_peer_wedge_surviving_hosts_exit_instead_of_hanging(tmp_path):
     """``peer_wedge@3:p1`` on a live 2-process cluster with NO straggler
     budget set: the wedged host stalls inside its iteration, the
@@ -467,6 +467,7 @@ def test_peer_wedge_surviving_hosts_exit_instead_of_hanging(tmp_path):
 
 
 @pytest.mark.deadline(360)
+@pytest.mark.slow
 def test_commit_crash_never_yields_mixed_step_restore(tmp_path):
     """``commit_crash@4:p1``: p1 dies AFTER reaching the step-4 commit
     point but BEFORE its barrier ack, so the manifest stays at step 2
@@ -519,6 +520,7 @@ def test_commit_crash_never_yields_mixed_step_restore(tmp_path):
 
 
 @pytest.mark.deadline(420)
+@pytest.mark.slow
 def test_supervised_peer_kill_restart_matches_uninterrupted(tmp_path):
     """The ISSUE 7 acceptance path, on the live 4-process cluster:
     SIGKILL one of 4 workers mid-epoch under the supervisor.  The
@@ -692,6 +694,7 @@ def test_supervisor_min_n_validation():
 
 
 @pytest.mark.deadline(420)
+@pytest.mark.slow
 def test_supervised_peer_kill_min_n_recovers_at_reduced_width(tmp_path):
     """The ISSUE 12 acceptance path: on the live 4-process cluster a
     kept ``peer_kill@6:p2`` fault models a host that NEVER comes back

@@ -80,7 +80,7 @@ def _run_child(code, cache_dir, tmp_path, *args):
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-@pytest.mark.deadline(420)
+@pytest.mark.deadline(60)
 def test_second_process_aot_scan_hits_cache(tmp_path):
     cache = tmp_path / "cache"
     cold = _run_child(_TRAIN_CHILD, cache, tmp_path, tmp_path / "run1")
@@ -111,7 +111,7 @@ def test_second_process_aot_scan_hits_cache(tmp_path):
     assert b["compile_s"] < a["compile_s"]
 
 
-@pytest.mark.deadline(420)
+@pytest.mark.deadline(60)
 def test_second_process_serving_warmup_reuses_cache(tmp_path):
     cache = tmp_path / "cache"
     cold = _run_child(_SERVE_CHILD, cache, tmp_path)

@@ -65,6 +65,7 @@ def test_bench_make_step_applies_graph_passes():
     assert x.shape[0] == 2
 
 
+@pytest.mark.slow
 def test_bench_infer_legs_run_and_account():
     """Both inference legs (bf16, int8-quantized) of the bench's
     int8-vs-bf16 table run end-to-end and report throughput + op

@@ -44,6 +44,7 @@ def test_classnll_fuzz(seed):
 
 
 @pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.slow
 def test_elementwise_criterion_fuzz(seed):
     """MSE / Abs(L1) / SmoothL1 / BCE / KLDiv over random shapes and
     size_average."""

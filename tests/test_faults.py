@@ -307,6 +307,7 @@ def test_resume_off_disables_auto_resume(tmp_path, monkeypatch):
     assert "_resumed_from" not in o2.state
 
 
+@pytest.mark.slow
 def test_kill_worker_is_ungraceful_and_restart_resumes(tmp_path,
                                                        monkeypatch):
     """``kill_worker@4``: SIGKILL, no handler, no final checkpoint — the

@@ -558,6 +558,7 @@ def test_optimize_for_tpu_rejects_uneval_example_input():
             (2, 5, 16, 16), jnp.float32))  # 5 channels into a 3-ch conv
 
 
+@pytest.mark.slow
 def test_optimize_for_tpu_infers_spec_by_default():
     """No example input: the invariant still runs via inferred specs (the
     bench/tools call pattern `optimize_for_tpu(model)`)."""

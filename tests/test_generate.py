@@ -170,6 +170,7 @@ def test_sample_token_greedy_and_seeded_topk():
 
 
 # -- the cache-correctness contract ------------------------------------------
+@pytest.mark.slow
 def test_greedy_decode_matches_full_forward_argmax(gen_executor):
     model, ex = gen_executor
     rng = np.random.default_rng(0)
@@ -184,6 +185,7 @@ def test_greedy_decode_matches_full_forward_argmax(gen_executor):
     assert toks == _full_forward_greedy(model, prompt, 8)
 
 
+@pytest.mark.slow
 def test_batched_decode_rows_are_independent(gen_executor):
     """Two sequences decoding TOGETHER produce exactly what each
     produces alone — the per-row length mask isolates cache rows."""
@@ -446,6 +448,7 @@ def test_generation_batcher_rejects_oversize_and_draining(gen_executor):
         gb.stop(drain=False)
 
 
+@pytest.mark.slow
 def test_refresh_state_keeps_decode_executables_and_live_caches():
     """The rollout contract: a same-shape weight swap mid-generation
     keeps every warm prefill/decode executable AND the in-flight KV
@@ -659,6 +662,7 @@ def test_metrics_sink_and_fleet_fold_generation_events():
 
 
 @pytest.mark.deadline(240)
+@pytest.mark.slow
 def test_cli_serve_generate_live_e2e_with_sigterm_drain():
     """The acceptance path: `cli serve --generate`, real streamed HTTP
     from another process with mixed prompt lengths, KV-cached greedy

@@ -371,7 +371,7 @@ def test_chrome_trace_renders_badput_lanes():
 
 
 # -- live e2e: supervised run with an injected kill --------------------------
-@pytest.mark.deadline(120)
+@pytest.mark.deadline(60)
 def test_supervised_kill_shows_restart_badput(tmp_path, monkeypatch):
     """End to end: a 2-process supervised run whose p0 SIGKILLs itself
     in incarnation 0.  Folding the telemetry dir (supervisor log +

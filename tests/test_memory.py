@@ -495,7 +495,7 @@ def test_bench_row_peak_hbm_diffs_by_suffix():
     assert not rows["x.peak_hbm_bytes"]["regressed"]
 
 
-@pytest.mark.deadline(150)
+@pytest.mark.deadline(60)
 def test_bench_memory_budget_exits_4_on_injected_regression(tmp_path):
     """The acceptance gate: bench.py --memory-budget flags a config
     whose peak_hbm_bytes grew past the budget with exit 4 — the same

@@ -173,6 +173,7 @@ def test_cli_token_data_shapes():
     assert xt.shape == yt.shape and xt.shape[1] == cli.LM_SEQ_LEN
 
 
+@pytest.mark.slow
 def test_textclassification_example_learns():
     """example/textclassification parity (TextClassifier.scala conv
     stack): the synthetic 5-topic corpus must be learnable."""

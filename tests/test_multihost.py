@@ -93,14 +93,14 @@ def _assert_same_params(path_a: str, path_b: str):
                                    err_msg=f"param {k} diverged")
 
 
-@pytest.mark.deadline(240)
+@pytest.mark.deadline(60)
 def test_two_process_training_matches_single_process(tmp_path):
     mp = _run_cluster(tmp_path, "mp")
     sp = _run_single(tmp_path, "sp")
     _assert_same_params(mp, sp)
 
 
-@pytest.mark.deadline(300)
+@pytest.mark.deadline(68)
 def test_four_process_training_matches_single_process(tmp_path):
     """Scale the control-plane test to 4 processes (4 x 2 virtual devices
     = an 8-device global mesh): the trajectory must still match the
@@ -111,7 +111,7 @@ def test_four_process_training_matches_single_process(tmp_path):
     _assert_same_params(mp, sp)
 
 
-@pytest.mark.deadline(240)
+@pytest.mark.deadline(60)
 def test_two_process_sparse_sync_matches_dense_single_process(tmp_path):
     """The sparse-sync acceptance (ISSUE 15, docs/sparse.md) on the
     REAL 2-process gloo cluster: the embedding classifier trained under
@@ -125,7 +125,7 @@ def test_two_process_sparse_sync_matches_dense_single_process(tmp_path):
     _assert_same_params(mp, sp)
 
 
-@pytest.mark.deadline(240)
+@pytest.mark.deadline(60)
 def test_two_process_zero1_matches_single_process(tmp_path):
     """ZeRO-1 optimizer-state sharding across the process boundary."""
     mp = _run_cluster(tmp_path, "mp_z1", BIGDL_TEST_ZERO1=1)
@@ -133,7 +133,7 @@ def test_two_process_zero1_matches_single_process(tmp_path):
     _assert_same_params(mp, sp)
 
 
-@pytest.mark.deadline(240)
+@pytest.mark.deadline(63)
 def test_two_process_fsdp_matches_single_process(tmp_path):
     """ZeRO-3: the PARAMETERS shard across the process boundary — no
     process holds a whole replica — and the trajectory still equals the
@@ -143,7 +143,7 @@ def test_two_process_fsdp_matches_single_process(tmp_path):
     _assert_same_params(mp, sp)
 
 
-@pytest.mark.deadline(240)
+@pytest.mark.deadline(60)
 def test_two_process_checkpoint_single_writer(tmp_path):
     """Checkpointing on a cluster: every process participates in the
     gathers but only the coordinator writes files."""
@@ -155,7 +155,7 @@ def test_two_process_checkpoint_single_writer(tmp_path):
     assert any(f.startswith("optimMethod.") for f in files), files
 
 
-@pytest.mark.deadline(240)
+@pytest.mark.deadline(60)
 def test_two_process_batch_feed_non_dp_layouts(tmp_path):
     """shard_local_batch must scale the global batch by how far the DATA
     axis spans processes, not by the raw process count (a multi-host
@@ -185,6 +185,7 @@ def test_engine_single_process_defaults():
 
 
 @pytest.mark.deadline(600)
+@pytest.mark.slow
 def test_two_process_preempt_resume_matches_uninterrupted(tmp_path):
     """The ISSUE 5 acceptance path: SIGTERM mid-run on the 2-process
     cluster, restart the cluster, and the resumed run's final params
@@ -221,7 +222,7 @@ def test_two_process_preempt_resume_matches_uninterrupted(tmp_path):
     _assert_same_params(resumed, un)
 
 
-@pytest.mark.deadline(420)
+@pytest.mark.deadline(60)
 def test_two_process_fleet_observability_blames_slow_host(tmp_path):
     """The ISSUE 10 acceptance path, one live 2-process run covering the
     whole comms/fleet stack: process 1 carries a 250 ms/batch
@@ -283,7 +284,7 @@ def test_two_process_fleet_observability_blames_slow_host(tmp_path):
         verdict
 
 
-@pytest.mark.deadline(420)
+@pytest.mark.deadline(73)
 def test_two_process_local_sgd_sheds_straggler(tmp_path):
     """The ISSUE 20 acceptance path — straggler-tolerant local SGD on a
     REAL 2-process cluster: both workers train with
@@ -399,7 +400,7 @@ def test_two_process_local_sgd_sheds_straggler(tmp_path):
         verdict
 
 
-@pytest.mark.deadline(300)
+@pytest.mark.deadline(63)
 def test_two_process_sharded_validation_matches_full(tmp_path):
     """Validation shards round-robin over processes and merges
     collectively (optim/DistriValidator.scala:35 re-scope): the cluster's
@@ -413,6 +414,7 @@ def test_two_process_sharded_validation_matches_full(tmp_path):
 
 
 @pytest.mark.deadline(600)
+@pytest.mark.slow
 def test_four_process_preempt_resume_on_two_matches_uninterrupted(tmp_path):
     """The ISSUE 12 acceptance path — the PR-7 recovery contract
     GENERALIZED across mesh shapes: train on 4 processes, SIGTERM

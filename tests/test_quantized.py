@@ -184,6 +184,7 @@ def test_calibrated_scale_survives_btpu_roundtrip(tmp_path):
                                np.asarray(q.forward(x)), rtol=1e-6)
 
 
+@pytest.mark.slow
 def test_int8_calibrated_inception_bytes_not_worse_than_bf16():
     """The serving-PR acceptance on the round-6 regression, verified by
     the attribution byte counts (XLA cost analysis of the lowered

@@ -130,6 +130,7 @@ def test_checkpoint_resume_over_remote_scheme(memfs):
     assert o2.state["neval"] == 6
 
 
+@pytest.mark.slow
 def test_retry_restores_from_remote_checkpoint(memfs):
     """An injected mid-training failure recovers from the memory://
     checkpoint through the retry loop (failure path + remote IO

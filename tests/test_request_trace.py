@@ -644,7 +644,7 @@ def test_each_frontend_status_reports_itself(lenet_server, gen_server):
 
 
 # -- the acceptance e2e: injected queue stall -> queue_wait blame -------------
-@pytest.mark.deadline(240)
+@pytest.mark.deadline(60)
 def test_queue_stall_is_blamed_on_queue_wait_not_the_cobatch(
         lenet_server, tmp_path):
     """Mixed load with one injected ~250ms queue stall: the stalled
@@ -818,7 +818,7 @@ def test_generate_trace_decomposes_ttft_and_inter_token(gen_server):
     assert metrics.count("# TYPE bigdl_serve_latency_ms histogram") == 1
 
 
-@pytest.mark.deadline(240)
+@pytest.mark.deadline(60)
 def test_prefill_flood_is_blamed_on_interference(gen_server):
     """A healthy decode stream that stalls because the worker keeps
     prefilling OTHER requests is blamed on prefill_interference — not
@@ -868,7 +868,7 @@ def test_prefill_flood_is_blamed_on_interference(gen_server):
     assert doc["blame"]["cause"] == "prefill_interference", doc["blame"]
 
 
-@pytest.mark.deadline(120)
+@pytest.mark.deadline(60)
 def test_generate_dispatch_timeout_is_a_counted_rejection(gen_server):
     """A non-streamed /v1/generate 504 leaves a dispatch_timeout
     REJECTION record (per-reason counters, /status.traces.rejections)
@@ -979,7 +979,7 @@ def test_metrics_sink_and_fleet_fold_request_events():
 
 
 # -- bench_serving SLO gate (live subprocess) ---------------------------------
-@pytest.mark.deadline(240)
+@pytest.mark.deadline(60)
 def test_bench_serving_slo_gate_exits_4_with_trace_evidence(tmp_path):
     """An impossible p99 budget must burn: exit 4 (the --diff-against
     regression code), the bench JSON row carrying the violating

@@ -531,7 +531,7 @@ def test_sigterm_drain_in_process():
         server.stop(drain=False)
 
 
-@pytest.mark.deadline(240)
+@pytest.mark.deadline(60)
 def test_cli_serve_live_e2e_with_sigterm_drain():
     """The acceptance path: `models/cli.py serve` on a registry model,
     real HTTP from another process, numerics equal to the in-process

@@ -38,7 +38,8 @@ def test_importing_the_port_loads_neither_jax_nor_bigdl_tpu():
             "import bigdl_tpu_torch, bigdl_tpu_torch.nn, bigdl_tpu_torch.ops.lrn\n"
             "import bigdl_tpu_torch.ops.pool, bigdl_tpu_torch.models.registry\n"
             "import bigdl_tpu_torch.models.cli, bigdl_tpu_torch.serving\n"
-            "import bigdl_tpu_torch.utils.convert\n"
+            "import bigdl_tpu_torch.utils.convert, bigdl_tpu_torch.optim\n"
+            "import bigdl_tpu_torch.parallel, bigdl_tpu_torch.nn.criterion\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'bigdl_tpu'))\n"
             "print(bad)\n")
