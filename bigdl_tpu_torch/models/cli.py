@@ -2,6 +2,7 @@
 ``bigdl_tpu/models/cli.py``; ``perf`` and ``serve`` so far).
 
     python -m bigdl_tpu_torch.models.cli perf --model inception_v1 -b 256
+    python -m bigdl_tpu_torch.models.cli perf --model transformer -b 32
     python -m bigdl_tpu_torch.models.cli serve --model inception_v1 \\
         --port 0 -b 8 --buckets 1,2,4,8 --max-wait-ms 2 --bf16
 
@@ -26,7 +27,11 @@ def cmd_perf(args) -> None:
     """The LocalOptimizerPerf protocol (``cmd_perf`` of the JAX
     package): synthetic data from ``np.random.default_rng(0)``, SGD(0.01,
     momentum 0.9), bf16 compute unless ``--no-bf16``, warm-up steps, then
-    timed steps.  Before the records/sec line it prints one JSON line:
+    timed steps.  Image models train on normal pixels and class labels
+    with ``ClassNLLCriterion``; the transformer LM on [b, 128] tokens and
+    next-token targets below ``num_classes`` (its vocab, 256 by default)
+    with ``TimeDistributedCriterion(ClassNLLCriterion(),
+    size_average=True)``.  Before the records/sec line it prints one JSON line:
     every step's loss, the kernel launches of all steps, the timed step
     time and the peak device memory.  The timed window synchronises only
     at its two ends."""
@@ -35,20 +40,31 @@ def cmd_perf(args) -> None:
 
     from bigdl_tpu_torch.device import resolve_device
     from bigdl_tpu_torch.models import registry
-    from bigdl_tpu_torch.nn.criterion import ClassNLLCriterion
+    from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion,
+                                              TimeDistributedCriterion)
     from bigdl_tpu_torch.ops import kernel_launches, reset_kernel_launches
     from bigdl_tpu_torch.optim import SGD
     from bigdl_tpu_torch.parallel import TrainStep
 
     device = resolve_device(args.device)
-    num_classes = args.num_classes or 1000
+    spec = registry.input_spec(args.model, args.batch_size)
+    tokens = spec.dtype.startswith("int")
+    num_classes = args.num_classes or (256 if tokens else 1000)
     model = registry.build_model(args.model, num_classes,
                                  generator=torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)
-    shape = registry.input_spec(args.model, args.batch_size).shape
-    x = rng.normal(size=shape).astype(np.float32)
-    y = rng.integers(0, num_classes, args.batch_size)
-    step = TrainStep(model, ClassNLLCriterion(),
+    criterion = ClassNLLCriterion()
+    if tokens:
+        # a language model: num_classes doubles as the vocab, and every
+        # position has a next-token target
+        x = rng.integers(0, num_classes, spec.shape, dtype=np.int32)
+        y = rng.integers(0, num_classes, spec.shape)
+        criterion = TimeDistributedCriterion(ClassNLLCriterion(),
+                                             size_average=True)
+    else:
+        x = rng.normal(size=spec.shape).astype(np.float32)
+        y = rng.integers(0, num_classes, args.batch_size)
+    step = TrainStep(model, criterion,
                      SGD(learning_rate=0.01, momentum=0.9),
                      compute_dtype=torch.bfloat16 if args.bf16 else None,
                      device=device)
@@ -126,7 +142,11 @@ def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="bigdl_tpu_torch.models.cli")
     sub = p.add_subparsers(dest="cmd", required=True)
     pf = sub.add_parser("perf", help="synthetic-data throughput harness")
-    pf.add_argument("--model", default="inception_v1")
+    pf.add_argument("--model", default="inception_v1",
+                    help="inception_v1 (3x224x224 images) or transformer "
+                         "([b, 128] tokens; at 128 tokens its attention "
+                         "runs the dense path on the card too, since "
+                         "flash starts at 512)")
     pf.add_argument("-b", "--batch-size", type=int, default=64)
     pf.add_argument("-i", "--iteration", type=int, default=10)
     pf.add_argument("--warmup", type=int, default=3)

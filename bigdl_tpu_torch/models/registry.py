@@ -8,8 +8,11 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-__all__ = ["InputSpec", "ModelEntry", "MODELS", "model_names",
-           "build_model", "input_spec"]
+__all__ = ["InputSpec", "ModelEntry", "MODELS", "LM_SEQ_LEN",
+           "model_names", "build_model", "input_spec"]
+
+#: the token models' sequence length, as the JAX package's data pipeline
+LM_SEQ_LEN = 128
 
 
 class InputSpec(NamedTuple):
@@ -33,8 +36,18 @@ def _inception_v1(num_classes: int = 0,
     return build_inception_v1(num_classes or 1000, generator=generator)
 
 
+def _transformer(num_classes: int = 0,
+                 generator: Optional[torch.Generator] = None):
+    from bigdl_tpu_torch.models.transformer import build_transformer_lm
+
+    return build_transformer_lm(vocab_size=num_classes or 256,
+                                generator=generator)
+
+
 MODELS: Dict[str, ModelEntry] = {
     "inception_v1": ModelEntry(_inception_v1, (3, 224, 224), "float32"),
+    # [batch, 128] int tokens -> per-position log-probs over the vocab
+    "transformer": ModelEntry(_transformer, (LM_SEQ_LEN,), "int32"),
 }
 
 

@@ -13,3 +13,5 @@ from bigdl_tpu_torch.nn.layers.pooling import *  # noqa: F401,F403
 from bigdl_tpu_torch.nn.layers.normalization import *  # noqa: F401,F403
 from bigdl_tpu_torch.nn.layers.shape import *  # noqa: F401,F403
 from bigdl_tpu_torch.nn.layers.container_ext import *  # noqa: F401,F403
+from bigdl_tpu_torch.nn.layers.embedding import *  # noqa: F401,F403
+from bigdl_tpu_torch.nn.layers.attention import *  # noqa: F401,F403

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["Criterion", "ClassNLLCriterion"]
+__all__ = ["Criterion", "ClassNLLCriterion", "TimeDistributedCriterion"]
 
 
 def _to_index(target, one_based: bool, device) -> torch.Tensor:
@@ -59,3 +59,24 @@ class ClassNLLCriterion(Criterion):
             return total / torch.sum(w) if self.size_average else total
         return torch.mean(-picked) if self.size_average \
             else torch.sum(-picked)
+
+
+class TimeDistributedCriterion(Criterion):
+    """The inner criterion at every step of [batch, time, ...] input and
+    target (``nn/TimeDistributedCriterion.scala``): the step losses are
+    summed, and divided by the number of steps under ``size_average``.
+    The steps run as one batched call (``torch.func.vmap`` over the time
+    axis), which keeps the per-step normalisation of any inner
+    criterion, a weighted one included."""
+
+    def __init__(self, criterion: Criterion, size_average: bool = False):
+        self.criterion = criterion
+        self.size_average = size_average
+
+    def update_output(self, input, target):
+        t = input.shape[1]
+        target = torch.as_tensor(target, device=input.device)
+        losses = torch.func.vmap(self.criterion.update_output,
+                                 in_dims=(1, 1))(input, target)
+        total = losses.sum()
+        return total / t if self.size_average else total

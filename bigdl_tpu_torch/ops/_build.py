@@ -35,8 +35,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 #: kernel sources, one shared library each
-SOURCES = ("lrn_fwd", "lrn_bwd", "avg_pool_fwd", "avg_pool_bwd")
-_HEADERS = ("common.cuh",)
+SOURCES = ("lrn_fwd", "lrn_bwd", "avg_pool_fwd", "avg_pool_bwd", "flash_fwd",
+           "flash_dq", "flash_dkv")
+_HEADERS = ("common.cuh", "flash.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,6 +52,9 @@ _SIGNATURES = {
                      [_P, _P, _P] + [_I] * 12 + [_P]),
     "avg_pool_bwd": ("bigdl_avg_pool_bwd",
                      [_P, _P] + [_I] * 12 + [_P]),
+    "flash_fwd": ("bigdl_flash_fwd", [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P]),
+    "flash_dq": ("bigdl_flash_dq", [_P] * 7 + [_I] * 4 + [_F, _I, _I, _P]),
+    "flash_dkv": ("bigdl_flash_dkv", [_P] * 8 + [_I] * 4 + [_F, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -291,7 +291,9 @@ def test_cpu_backward_never_touches_the_kernels(monkeypatch):
     assert x.grad is not None and torch.isfinite(x.grad).all()
     assert kernel_launches() == {"cross_map_lrn_fwd": 0,
                                  "cross_map_lrn_bwd": 0,
-                                 "avg_pool_fwd": 0, "avg_pool_bwd": 0}
+                                 "avg_pool_fwd": 0, "avg_pool_bwd": 0,
+                                 "flash_fwd": 0, "flash_dq": 0,
+                                 "flash_dkv": 0}
 
 
 def _forbidden_build(*args, **kwargs):

@@ -277,7 +277,9 @@ def test_perf_trains_on_the_cpu_and_reports(monkeypatch, capsys):
     assert all(np.isfinite(report["losses"]))
     assert report["launches"] == {"cross_map_lrn_fwd": 0,
                                   "cross_map_lrn_bwd": 0,
-                                  "avg_pool_fwd": 0, "avg_pool_bwd": 0}
+                                  "avg_pool_fwd": 0, "avg_pool_bwd": 0,
+                                  "flash_fwd": 0, "flash_dq": 0,
+                                  "flash_dkv": 0}
     assert re.fullmatch(r"narrow: [0-9.]+ records/sec \(batch 4, 2 iters, "
                         r"[0-9.]+s\)", lines[-1])
 
