@@ -2,6 +2,8 @@
 ``bigdl_tpu/models/cli.py``; ``perf`` and ``serve`` so far).
 
     python -m bigdl_tpu_torch.models.cli perf --model inception_v1 -b 256
+    python -m bigdl_tpu_torch.models.cli perf --model inception_v1 -b 256 \\
+        --pool-kernel on
     python -m bigdl_tpu_torch.models.cli perf --model transformer -b 32
     python -m bigdl_tpu_torch.models.cli serve --model inception_v1 \\
         --port 0 -b 8 --buckets 1,2,4,8 --max-wait-ms 2 --bf16
@@ -31,10 +33,13 @@ def cmd_perf(args) -> None:
     with ``ClassNLLCriterion``; the transformer LM on [b, 128] tokens and
     next-token targets below ``num_classes`` (its vocab, 256 by default)
     with ``TimeDistributedCriterion(ClassNLLCriterion(),
-    size_average=True)``.  Before the records/sec line it prints one JSON line:
-    every step's loss, the kernel launches of all steps, the timed step
-    time and the peak device memory.  The timed window synchronises only
-    at its two ends."""
+    size_average=True)``.  ``--pool-kernel on`` sets ``argmax_index`` on
+    every max pool of the model (the JAX ``cmd_perf`` reads
+    ``BIGDL_POOL_KERNEL`` from the environment instead).  Before the
+    records/sec line it prints one JSON line: every step's loss, the
+    kernel launches of all steps, the timed step time and the peak
+    device memory.  The timed window synchronises only at its two
+    ends."""
     import numpy as np
     import torch
 
@@ -42,6 +47,7 @@ def cmd_perf(args) -> None:
     from bigdl_tpu_torch.models import registry
     from bigdl_tpu_torch.nn.criterion import (ClassNLLCriterion,
                                               TimeDistributedCriterion)
+    from bigdl_tpu_torch.nn.layers.pooling import SpatialMaxPooling
     from bigdl_tpu_torch.ops import kernel_launches, reset_kernel_launches
     from bigdl_tpu_torch.optim import SGD
     from bigdl_tpu_torch.parallel import TrainStep
@@ -52,6 +58,9 @@ def cmd_perf(args) -> None:
     num_classes = args.num_classes or (256 if tokens else 1000)
     model = registry.build_model(args.model, num_classes,
                                  generator=torch.Generator().manual_seed(0))
+    for m in model.modules():
+        if isinstance(m, SpatialMaxPooling):
+            m.use_argmax_index(args.pool_kernel == "on")
     rng = np.random.default_rng(0)
     criterion = ClassNLLCriterion()
     if tokens:
@@ -97,6 +106,7 @@ def cmd_perf(args) -> None:
     rate = args.batch_size * args.iteration / wall
     print(json.dumps({
         "perf": args.model, "batch": args.batch_size, "bf16": args.bf16,
+        "pool_kernel": args.pool_kernel,
         "warmup": args.warmup, "iters": args.iteration, "losses": losses,
         "launches": kernel_launches(),
         "step_ms": wall / max(args.iteration, 1) * 1e3,
@@ -154,6 +164,13 @@ def _parser() -> argparse.ArgumentParser:
     pf.add_argument("--no-bf16", dest="bf16", action="store_false")
     pf.add_argument("--num-classes", type=int, default=0)
     pf.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    pf.add_argument("--pool-kernel", choices=("off", "on"), default="off",
+                    help="on: every max pool takes the argmax-index path "
+                         "(first-maximum gradient from a saved int8 index, "
+                         "CUDA kernels; bf16 or f16 input only, f32 keeps "
+                         "the default path). The JAX cmd_perf reads this "
+                         "switch from BIGDL_POOL_KERNEL instead, whose "
+                         "default auto means off")
     pf.set_defaults(fn=cmd_perf)
     s = sub.add_parser("serve", help="serve a model over HTTP")
     s.add_argument("--model", default="inception_v1")

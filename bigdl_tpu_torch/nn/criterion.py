@@ -8,6 +8,8 @@ the reference's 1-based labels.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 __all__ = ["Criterion", "ClassNLLCriterion", "TimeDistributedCriterion"]
@@ -40,7 +42,16 @@ class ClassNLLCriterion(Criterion):
 
     bf16 log-probs give a bf16 loss, as in the JAX package: both
     frameworks accumulate the mean (and the log-softmax sum before it)
-    in f32 inside the reduction and round its result to bf16."""
+    in f32 inside the reduction and round its result to bf16.
+
+    Out-of-range targets give what the JAX package's
+    ``take_along_axis`` gives: a target in ``[-n, 0)`` counts from the
+    end (-1 is the last class); any other target outside ``[0, n)``
+    picks NaN, so the loss is NaN, and sends no gradient.  A class
+    weight is looked up as ``LookupTable`` looks up a row (wrapped, then
+    clamped).  The rule is applied to the target with tensor ops before
+    the gather, so no target reaches ``torch.gather`` out of range and
+    no device-side assert can fire on the card."""
 
     def __init__(self, weights=None, size_average: bool = True,
                  one_based: bool = False):
@@ -51,8 +62,14 @@ class ClassNLLCriterion(Criterion):
     def update_output(self, input, target):
         t = _to_index(target, self.one_based, input.device)
         logp = input[None, :] if input.ndim == 1 else input
+        n = logp.shape[1]
         t = t.reshape(logp.shape[0])
+        valid = (t >= -n) & (t < n)
+        t = torch.where(t < 0, t + n, t).clamp(0, n - 1)
         picked = torch.gather(logp, 1, t[:, None])[:, 0]
+        picked = torch.where(valid, picked,
+                             torch.full((), math.nan, dtype=picked.dtype,
+                                        device=picked.device))
         if self.weights is not None:
             w = self.weights.to(input.device)[t]
             total = -torch.sum(w * picked)

@@ -26,7 +26,15 @@ class LookupTable(Module):
     ``one_based``.  ``padding_idx``: that row gets no gradient, but its
     value is still gathered.  ``max_norm`` renormalises the rows it
     gathers (``norm_type`` norm), and the gradient flows through the
-    renorm.  The weight is drawn from N(0, 1)."""
+    renorm.  The weight is drawn from N(0, 1).
+
+    Out-of-range indices gather what the JAX package's ``w[idx]``
+    gathers: a negative index counts from the end (-1 is the last row),
+    and whatever still lies outside ``[0, n_index)`` is clamped to the
+    nearest row (past the end: the last row; below ``-n_index``: row 0).
+    The rule is applied to the index with tensor ops before the gather,
+    so no index reaches ``F.embedding`` out of range and no device-side
+    assert can fire on the card."""
 
     def __init__(self, n_index: int, n_output: int, *,
                  max_norm: float = float("inf"), norm_type: float = 2.0,
@@ -54,13 +62,15 @@ class LookupTable(Module):
 
     def forward(self, x):
         idx = self._indices(x)
+        n = self.weight.shape[0]
+        rows_idx = torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
         w = self.weight
         if self.max_norm != float("inf"):
             norms = torch.linalg.vector_norm(w, ord=self.norm_type, dim=1,
                                              keepdim=True)
             w = w * torch.clamp(self.max_norm / norms.clamp(min=1e-12),
                                 max=1.0)
-        rows = F.embedding(idx, w)
+        rows = F.embedding(rows_idx, w)
         if self.padding_idx is not None:
             # the padding positions' rows come from a detached branch:
             # their value is kept and their gradient dropped

@@ -8,7 +8,7 @@ from typing import Callable, Dict
 
 def kernel_wrappers() -> Dict[str, Callable]:
     """Every kernel wrapper of the port, by kernel name."""
-    from bigdl_tpu_torch.ops import attention, lrn, pool
+    from bigdl_tpu_torch.ops import attention, lrn, pool, pooling
 
     return {"cross_map_lrn_fwd": lrn.cross_map_lrn_forward,
             "cross_map_lrn_bwd": lrn.cross_map_lrn_backward,
@@ -16,7 +16,10 @@ def kernel_wrappers() -> Dict[str, Callable]:
             "avg_pool_bwd": pool.avg_pool_backward,
             "flash_fwd": attention.flash_fwd,
             "flash_dq": attention.flash_dq,
-            "flash_dkv": attention.flash_dkv}
+            "flash_dkv": attention.flash_dkv,
+            "maxpool_fwd": pool.maxpool_forward,
+            "maxpool_tie_bwd": pool.maxpool_tie_split_backward,
+            "maxpool_argmax_bwd": pooling.maxpool_argmax_backward}
 
 
 def kernel_launches() -> Dict[str, int]:

@@ -36,7 +36,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 #: kernel sources, one shared library each
 SOURCES = ("lrn_fwd", "lrn_bwd", "avg_pool_fwd", "avg_pool_bwd", "flash_fwd",
-           "flash_dq", "flash_dkv")
+           "flash_dq", "flash_dkv", "maxpool_fwd", "maxpool_tie_bwd",
+           "maxpool_argmax_bwd")
 _HEADERS = ("common.cuh", "flash.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -55,6 +56,10 @@ _SIGNATURES = {
     "flash_fwd": ("bigdl_flash_fwd", [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P]),
     "flash_dq": ("bigdl_flash_dq", [_P] * 7 + [_I] * 4 + [_F, _I, _I, _P]),
     "flash_dkv": ("bigdl_flash_dkv", [_P] * 8 + [_I] * 4 + [_F, _I, _I, _P]),
+    "maxpool_fwd": ("bigdl_maxpool_fwd", [_P] * 3 + [_I] * 12 + [_P]),
+    "maxpool_tie_bwd": ("bigdl_maxpool_tie_bwd", [_P] * 5 + [_I] * 12 + [_P]),
+    "maxpool_argmax_bwd": ("bigdl_maxpool_argmax_bwd",
+                           [_P] * 3 + [_I] * 12 + [_P]),
 }
 
 _lock = threading.Lock()

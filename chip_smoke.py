@@ -48,6 +48,34 @@ line per phase; any failure ends it with a non-zero exit and no result:
               of the flash forward, dq and dkv kernels.  (c) forward,
               backward and optimizer ms.  (d) the same step with dense
               attention, records/s, for re-picking ``flash_min_seq``.
+6. train_pool -- the Inception-v1 step with its 13 max pools in each
+              kernel mode.  (a) one full-width step (no dropout, batch 8,
+              deterministic cuDNN) through the kernels against the same
+              step through the plain versions: tie-split in f32, argmax
+              in bf16 (its gate takes 16-bit input only), both to loss
+              1e-5 relative and parameters rtol 1e-4 / atol 1e-6 (every
+              kernel is bit-equal to its plain version, so nothing but
+              the order of cuDNN's sums could tell the two apart, and
+              that is fixed).  (b) batch 256, bf16, dropout on, 3 warm-up
+              and 10 timed steps: tie-split built here with
+              ``split_ties()`` on every max pool, argmax through ``cli
+              perf ... --pool-kernel on`` in a subprocess; finite losses,
+              the last three below the first three, and exactly 13 + 13
+              max-pool launches per step (``maxpool_fwd`` with
+              ``maxpool_tie_bwd`` or ``maxpool_argmax_bwd``) beside
+              2/2/1/1 of the LRN and average-pool kernels; records/s,
+              step ms and peak memory beside the default step's.
+
+The kernels phase also holds the three max-pool kernels to their plain
+versions bit for bit: the forward without an index (tie-split) in f32
+and bf16, with the int8 index (argmax) in bf16 and f16, the tie-split
+backward in f32 and bf16 and the argmax backward in bf16 and f16, at
+the training shapes of pool1, the inception_3b pool branch and pool4
+(post-ReLU inputs, so windows of zeros tie; checked and timed), and at
+the edge geometries of the JAX package's pooling tests (ceil overflow,
+anisotropic windows, stride 1, global 7x7, the bottom-row residue
+shortfall) with tie-heavy inputs, all -inf windows, NaN, -0.0 beside
++0.0 and an inf gradient (checked only).
 
 The kernels phase also holds the three flash-attention kernels against
 their plain versions in f32 and bf16 at the training shape
@@ -99,6 +127,11 @@ TRAIN_BATCH = 256
 #: kernel launches of one Inception-v1 train step, by kernel
 PER_STEP = {"cross_map_lrn_fwd": 2, "cross_map_lrn_bwd": 2,
             "avg_pool_fwd": 1, "avg_pool_bwd": 1}
+#: kernel launches of one Inception-v1 train step in each max-pool mode:
+#: the 13 max pools launch the forward and the mode's backward once each
+POOL_PER_STEP = {
+    "tie": {**PER_STEP, "maxpool_fwd": 13, "maxpool_tie_bwd": 13},
+    "argmax": {**PER_STEP, "maxpool_fwd": 13, "maxpool_argmax_bwd": 13}}
 LM_BATCH = 32
 LM_LAYERS = 6
 #: kernel launches of one transformer_lm train step: one per layer each
@@ -357,6 +390,145 @@ def _pool_bwd_cases(torch):
                  library=library, bound=bound)]
 
 
+#: the max pools' training sites timed at batch 256: (site, channels,
+#: extent, stride, pad) of pool1, the inception_3b pool branch and pool4
+MAXPOOL_SITES = (("pool1", 64, 112, 2, 0), ("inception_3b pool", 256, 28, 1, 1),
+                 ("pool4", 832, 14, 2, 0))
+
+
+def _maxpool_geometry(torch, shape, k, s, pad):
+    """(dims, strides, pads) of ``SpatialMaxPooling(k, k, s, s, pad,
+    pad).ceil()`` on ``shape``, as inception.py builds every max pool."""
+    from bigdl_tpu_torch.nn.layers.pooling import SpatialMaxPooling
+
+    layer = SpatialMaxPooling(k, k, s, s, pad, pad).ceil()
+    return layer._window(torch.empty(shape, device="meta"))[:3]
+
+
+def _maxpool_cases(torch):
+    """The three max-pool kernels at the training sites: the forward
+    without an index (the tie-split path) and with it (the argmax path),
+    and both backwards.  Inputs are post-ReLU, as the model feeds the
+    pools, so windows of zeros tie."""
+    from bigdl_tpu_torch.ops import pool, pooling
+
+    F = torch.nn.functional
+    inf = float("inf")
+    cases = []
+    for site, c, n, s, pad in MAXPOOL_SITES:
+        shape = (TRAIN_BATCH, c, n, n)
+        dims, strides, pads = _maxpool_geometry(torch, shape, 3, s, pad)
+        flat = [pads[3][0], pads[3][1], pads[2][0], pads[2][1]]
+        k2, s2 = list(dims[2:]), list(strides[2:])
+        taps = dims[2] * dims[3]
+        outs = math.prod(pool._out_sizes(shape, dims, strides, pads))
+        per_input = math.ceil(dims[2] / strides[2]) \
+            * math.ceil(dims[3] / strides[3])
+
+        def make_x(gen, shape, dtype):
+            return (torch.randn(shape, generator=gen, device="cuda")
+                    .relu().to(dtype),)
+
+        def make_tie(gen, shape, dtype, dims=dims, strides=strides,
+                     pads=pads):
+            x = make_x(gen, shape, dtype)[0]
+            y = pool.maxpool_forward_plain(x, dims, strides, pads)
+            return x, y, torch.randn(y.shape, generator=gen,
+                                     device="cuda").to(dtype)
+
+        def make_argmax(gen, shape, dtype, dims=dims, strides=strides,
+                        pads=pads):
+            x = make_x(gen, shape, dtype)[0]
+            y, idx = pool.maxpool_forward_plain(x, dims, strides, pads, True)
+            gy = torch.randn(y.shape, generator=gen, device="cuda").to(dtype)
+            return gy, idx, x
+
+        def padded(x, flat=flat):
+            return (F.pad(x, flat, value=-inf),)
+
+        def argmax_library_inputs(gy, idx, x, flat=flat, k2=k2, s2=s2):
+            # the int64 indices F.max_pool2d saves, made outside the
+            # timed region
+            xp = F.pad(x, flat, value=-inf)
+            return gy, xp, F.max_pool2d(xp, k2, s2, return_indices=True)[1]
+
+        geo = dict(dims=dims, strides=strides, pads=pads)
+        common = dict(shape=shape, site=site, exact=True,
+                      library_graph=True)
+        cases += [
+            dict(name="maxpool_fwd", path="train_tie", make=make_x,
+                 dtypes=(torch.float32, torch.bfloat16),
+                 kernel=lambda x, g=geo: pool.maxpool_forward(x, **g),
+                 plain=lambda x, g=geo: pool.maxpool_forward_plain(x, **g),
+                 library_inputs=padded,
+                 library=lambda xp, k2=k2, s2=s2: F.max_pool2d(xp, k2, s2),
+                 # x in, y out
+                 bound=lambda x, taps=taps, outs=outs: (
+                     (x.numel() + outs) * x.element_size(), outs * taps),
+                 **common),
+            dict(name="maxpool_fwd", path="train_argmax", make=make_x,
+                 dtypes=(torch.bfloat16, torch.float16),
+                 kernel=lambda x, g=geo: pool.maxpool_forward(
+                     x, want_index=True, **g),
+                 plain=lambda x, g=geo: pool.maxpool_forward_plain(
+                     x, want_index=True, **g),
+                 library_inputs=padded,
+                 library=lambda xp, k2=k2, s2=s2: F.max_pool2d(
+                     xp, k2, s2, return_indices=True),
+                 # x in; y and the int8 idx out
+                 bound=lambda x, taps=taps, outs=outs: (
+                     (x.numel() + outs) * x.element_size() + outs,
+                     outs * taps),
+                 **common),
+            dict(name="maxpool_tie_bwd", path="train_tie", make=make_tie,
+                 dtypes=(torch.float32, torch.bfloat16),
+                 kernel=lambda x, y, gy, g=geo:
+                     pool.maxpool_tie_split_backward(x, y, gy, **g),
+                 plain=lambda x, y, gy, g=geo:
+                     pool.maxpool_tie_split_backward_plain(x, y, gy, **g),
+                 library=None,   # no PyTorch call splits ties
+                 # x, y, gy in; dx out; per output taps compares and a
+                 # division, per input its windows' compares and adds
+                 bound=lambda x, y, gy, taps=taps, pi=per_input: (
+                     (2 * x.numel() + 2 * y.numel()) * x.element_size(),
+                     y.numel() * (taps + 1) + x.numel() * pi * 2),
+                 **common),
+            dict(name="maxpool_argmax_bwd", path="train_argmax",
+                 make=make_argmax, dtypes=(torch.bfloat16, torch.float16),
+                 kernel=lambda gy, idx, x, g=geo:
+                     pooling.maxpool_argmax_backward(gy, idx, x.shape, **g),
+                 plain=lambda gy, idx, x, g=geo:
+                     pooling.maxpool_argmax_backward_plain(gy, idx, x.shape,
+                                                           **g),
+                 library_inputs=argmax_library_inputs,
+                 library=lambda gy, xp, ind, k2=k2, s2=s2:
+                     torch.ops.aten.max_pool2d_with_indices_backward(
+                         gy, xp, k2, s2, [0, 0], [1, 1], False, ind),
+                 # gy and the int8 idx in; dx out
+                 bound=lambda gy, idx, x, pi=per_input: (
+                     gy.numel() * (gy.element_size() + 1)
+                     + x.numel() * x.element_size(), x.numel() * pi * 2),
+                 **common)]
+    return cases
+
+
+def bit_equal(torch, got, want, what: str) -> None:
+    """Raise unless every output of ``got`` has the bits of ``want``'s."""
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    ints = {2: torch.int16, 4: torch.int32}
+    for a, b in zip(got, want):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise RuntimeError(f"{what}: {a.dtype} {tuple(a.shape)} against "
+                               f"{b.dtype} {tuple(b.shape)}")
+        if a.is_floating_point():
+            a, b = (t.view(ints[t.element_size()]) for t in (a, b))
+        if not torch.equal(a, b):
+            raise RuntimeError(f"{what}: the kernel's bits differ from the "
+                               f"plain version's at {(a != b).sum().item()} "
+                               f"elements")
+
+
 def phase_kernels(torch):
     """Accuracy and timing of every kernel at the shapes of each main
     path that launches it."""
@@ -366,15 +538,22 @@ def phase_kernels(torch):
              + _pool_cases(torch, "serve", BATCH)
              + _lrn_cases(torch, "train", TRAIN_BATCH)
              + _pool_cases(torch, "train", TRAIN_BATCH)
-             + _lrn_bwd_cases(torch) + _pool_bwd_cases(torch))
+             + _lrn_bwd_cases(torch) + _pool_bwd_cases(torch)
+             + _maxpool_cases(torch))
+    tols = {torch.float32: dict(rtol=1e-5, atol=1e-6),
+            torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
     for case in cases:
-        for dtype, tol in ((torch.float32, dict(rtol=1e-5, atol=1e-6)),
-                           (torch.bfloat16, dict(rtol=2e-2, atol=2e-2))):
+        for dtype in case.get("dtypes", (torch.float32, torch.bfloat16)):
+            tol = "bit-equal" if case.get("exact") else tols[dtype]
             args = case["make"](gen, case["shape"], dtype)
             got = case["kernel"](*args)
             want = case["plain"](*args)
             torch.cuda.synchronize()
-            torch.testing.assert_close(got, want, **tol)
+            if case.get("exact"):
+                bit_equal(torch, got, want, f"{case['name']} {case['site']} "
+                                            f"{str(dtype)[6:]}")
+            else:
+                torch.testing.assert_close(got, want, **tol)
             if isinstance(got, torch.Tensor):
                 got, want = (got,), (want,)
             err = max((a.float() - b.float()).abs().max().item()
@@ -387,9 +566,15 @@ def phase_kernels(torch):
             t_ops = flops / F32_FLOPS_PER_S * 1e3
             ms = graph_ms(torch, case["kernel"], copies, launches)
             plain_ms = graph_ms(torch, case["plain"], copies, launches)
-            if "library_inputs" in case:
+            if case["library"] is None:
+                library_ms = None
+            elif "library_inputs" in case:
                 lib_args = [case["library_inputs"](*a) for a in copies]
-                library_ms = event_ms(torch, case["library"], lib_args)
+                if case.get("library_graph"):
+                    library_ms = graph_ms(torch, case["library"], lib_args,
+                                          launches)
+                else:
+                    library_ms = event_ms(torch, case["library"], lib_args)
                 del lib_args
             else:
                 library_ms = graph_ms(torch, case["library"], copies,
@@ -408,6 +593,82 @@ def phase_kernels(torch):
             del copies, args
             torch.cuda.empty_cache()
     return rows
+
+
+#: edge geometries (shape, k, s, pads): ``CASES`` of
+#: tests/test_pooling_pallas.py, then ``POOL_CASES`` of tests/test_kernels.py
+MAXPOOL_EDGES = (
+    ((2, 8, 12, 12), (3, 3), (2, 2), ((0, 1), (0, 1))),   # ceil-mode 3x3/s2
+    ((2, 8, 13, 13), (3, 3), (2, 2), ((1, 1), (1, 1))),   # padded odd extent
+    ((2, 4, 14, 14), (2, 2), (2, 2), ((0, 0), (0, 0))),   # even 2x2/s2
+    ((1, 8, 9, 9), (3, 3), (1, 1), ((0, 0), (0, 0))),     # stride-1 overlap
+    ((2, 4, 7, 7), (7, 7), (7, 7), ((0, 0), (0, 0))),     # global 7x7
+    ((1, 8, 10, 8), (3, 2), (2, 3), ((1, 0), (0, 1))),    # anisotropic
+    ((1, 8, 11, 11), (2, 2), (2, 2), ((0, 0), (0, 0))),   # residue shortfall
+    ((2, 3, 9, 9), (3, 3), (2, 2), ((1, 1), (1, 1))),
+    ((2, 3, 9, 9), (3, 3), (2, 2), ((1, 2), (1, 2))),     # ceil overflow
+    ((1, 2, 7, 8), (3, 2), (2, 3), ((1, 0), (0, 1))),     # anisotropic
+    ((1, 1, 6, 6), (3, 3), (1, 1), ((0, 0), (0, 0))),     # stride-1 overlap
+    ((1, 2, 11, 11), (2, 2), (2, 2), ((0, 1), (0, 1))),   # residue shortfall
+)
+
+
+def _edge_inputs(torch, gen, shape):
+    """Normal, tie-heavy (quantized to halves) and special inputs: the
+    tie-heavy values with a 3x3 block of -inf in the first plane (its
+    corner windows are all -inf, padding included), a NaN in the second,
+    and -0.0 before +0.0 in the third."""
+    x = torch.randn(shape, generator=gen, device="cuda")
+    ties = torch.round(x * 2) / 2
+    special = ties.clone()
+    planes = special.view(-1, shape[2], shape[3])
+    planes[0, :3, :3] = float("-inf")
+    planes[1 % len(planes), shape[2] // 2, shape[3] // 2] = float("nan")
+    planes[2 % len(planes), :2, :2] = 0.0
+    planes[2 % len(planes), 0, 0] = -0.0
+    return {"normal": x, "tie_heavy": ties, "special": special}
+
+
+def phase_maxpool_edges(torch):
+    """Every max-pool kernel bit-equal to its plain version at the edge
+    geometries, in each of its dtypes (checked only)."""
+    from bigdl_tpu_torch.ops import pool, pooling
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    checks = 0
+    for shape, k, s, p in MAXPOOL_EDGES:
+        geo = dict(dims=(1, 1) + k, strides=(1, 1) + s,
+                   pads=((0, 0), (0, 0)) + p)
+        for kind, x32 in _edge_inputs(torch, gen, shape).items():
+            for dtype in (torch.float32, torch.bfloat16, torch.float16):
+                x = x32.to(dtype)
+                what = f"{shape} k{k} s{s} p{p} {kind} {str(dtype)[6:]}"
+                y, idx = pool.maxpool_forward_plain(x, want_index=True, **geo)
+                gy = torch.randn(y.shape, generator=gen,
+                                 device="cuda").to(dtype)
+                if dtype != torch.float16:  # the tie-split path's dtypes
+                    bit_equal(torch, pool.maxpool_forward(x, **geo), y,
+                              f"maxpool_fwd {what}")
+                    bit_equal(torch, pool.maxpool_tie_split_backward(
+                        x, y, gy, **geo), pool.maxpool_tie_split_backward_plain(
+                        x, y, gy, **geo), f"maxpool_tie_bwd {what}")
+                    checks += 2
+                if dtype != torch.float32:  # the argmax path's dtypes
+                    gy.view(-1)[0] = float("inf")
+                    bit_equal(torch, pool.maxpool_forward(
+                        x, want_index=True, **geo), (y, idx),
+                        f"maxpool_fwd (index) {what}")
+                    bit_equal(torch, pooling.maxpool_argmax_backward(
+                        gy, idx, shape, **geo),
+                        pooling.maxpool_argmax_backward_plain(
+                            gy, idx, shape, **geo),
+                        f"maxpool_argmax_bwd {what}")
+                    checks += 2
+    torch.cuda.synchronize()
+    emit({"phase": "kernels", "name": "maxpool", "checked_only": True,
+          "geometries": len(MAXPOOL_EDGES), "checks": checks,
+          "tolerance": "bit-equal",
+          "inputs": "normal, tie-heavy, special (-inf block, NaN, -0.0)"})
 
 
 # ---------------------------------------------------------------------------
@@ -653,6 +914,44 @@ def _plain_flash(torch):
     return flash_attention
 
 
+def _plain_max_pools(torch):
+    """Tie-split and argmax max pooling through their plain versions,
+    forward and backward."""
+    from bigdl_tpu_torch.ops import pool, pooling
+
+    class PlainTieSplit(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, dims, strides, pads):
+            y = pool.maxpool_forward_plain(x, dims, strides, pads)
+            ctx.save_for_backward(x, y)
+            ctx.geom = (dims, strides, pads)
+            return y
+
+        @staticmethod
+        def backward(ctx, gy):
+            x, y = ctx.saved_tensors
+            dx = pool.maxpool_tie_split_backward_plain(x, y, gy.contiguous(),
+                                                       *ctx.geom)
+            return dx, None, None, None
+
+    class PlainArgmax(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, dims, strides, pads):
+            y, idx = pool.maxpool_forward_plain(x, dims, strides, pads, True)
+            ctx.save_for_backward(idx)
+            ctx.x_shape, ctx.geom = tuple(x.shape), (dims, strides, pads)
+            return y
+
+        @staticmethod
+        def backward(ctx, gy):
+            (idx,) = ctx.saved_tensors
+            dx = pooling.maxpool_argmax_backward_plain(
+                gy.contiguous(), idx, ctx.x_shape, *ctx.geom)
+            return dx, None, None, None
+
+    return PlainTieSplit.apply, PlainArgmax.apply
+
+
 @contextlib.contextmanager
 def plain_versions(torch):
     """Route the layers to the plain versions of their kernels, forward
@@ -662,14 +961,18 @@ def plain_versions(torch):
     from bigdl_tpu_torch.ops import attention
 
     saved = (normalization.cross_map_lrn, pooling.avg_pool,
+             pooling.maxpool_tie_split, pooling.maxpool_argmax,
              attention.flash_attention)
     normalization.cross_map_lrn = _plain_lrn(torch)
     pooling.avg_pool = _plain_avg_pool(torch)
+    pooling.maxpool_tie_split, pooling.maxpool_argmax = \
+        _plain_max_pools(torch)
     attention.flash_attention = _plain_flash(torch)
     try:
         yield
     finally:
         (normalization.cross_map_lrn, pooling.avg_pool,
+         pooling.maxpool_tie_split, pooling.maxpool_argmax,
          attention.flash_attention) = saved
 
 
@@ -751,7 +1054,9 @@ def phase_serve(torch, card: str):
         if launches["cross_map_lrn_fwd"] < 2 * batches \
                 or launches["avg_pool_fwd"] < batches or batches < 1 \
                 or launches["cross_map_lrn_bwd"] or launches["avg_pool_bwd"] \
-                or any(launches[k] for k in LM_PER_STEP):
+                or any(launches[k] for k in LM_PER_STEP) \
+                or any(launches[k] for k in ("maxpool_fwd", "maxpool_tie_bwd",
+                                             "maxpool_argmax_bwd")):
             raise RuntimeError(f"kernel launches {launches} for {batches} "
                                f"batches: the served forward missed a kernel")
     finally:
@@ -805,9 +1110,25 @@ def serve_breakdown(torch, server, bodies, reps: int = 10):
     return out
 
 
-def _train_parity(torch):
-    """(a) One f32 SGD step of full-width Inception-v1 through the
-    kernels against the same step through their plain versions."""
+def set_pool_mode(model, mode):
+    """Put every max pool of ``model`` in ``mode``: None (the default),
+    "tie" (``split_ties()``) or "argmax" (``use_argmax_index()``)."""
+    from bigdl_tpu_torch.nn.layers.pooling import (SpatialAveragePooling,
+                                                   SpatialMaxPooling)
+
+    pools = [m for m in model.modules() if isinstance(m, SpatialMaxPooling)
+             and not isinstance(m, SpatialAveragePooling)]
+    for m in pools:
+        if mode == "tie":
+            m.split_ties()
+        m.use_argmax_index(mode == "argmax")
+    return pools
+
+
+def _train_parity(torch, mode=None, compute_dtype=None):
+    """(a) One SGD step of full-width Inception-v1 with its max pools in
+    ``mode`` through the kernels against the same step through their
+    plain versions."""
     import copy
 
     from bigdl_tpu_torch.models.inception import build_inception_v1
@@ -819,6 +1140,7 @@ def _train_parity(torch):
     torch.backends.cudnn.deterministic = True
     model = build_inception_v1(
         1000, has_dropout=False, generator=torch.Generator().manual_seed(SEED))
+    set_pool_mode(model, mode)
     rng = np.random.default_rng(SEED)
     x = torch.from_numpy(rng.normal(size=(BATCH, 3, 224, 224))
                          .astype(np.float32)).cuda()
@@ -827,14 +1149,15 @@ def _train_parity(torch):
     def step(m):
         return TrainStep(m, ClassNLLCriterion(),
                          SGD(learning_rate=0.01, momentum=0.9),
-                         device="cuda")
+                         compute_dtype=compute_dtype, device="cuda")
 
     ref = step(copy.deepcopy(model))
     run = step(model)
     reset_kernel_launches()
     loss = run.run(x, y)
     launches = kernel_launches()
-    expect_launches(launches, PER_STEP, 1, "one train step")
+    expect_launches(launches, POOL_PER_STEP[mode] if mode else PER_STEP, 1,
+                    f"one train step ({mode or 'default'} max pools)")
     with plain_versions(torch):
         want = ref.run(x, y)
     if kernel_launches() != launches:
@@ -846,18 +1169,20 @@ def _train_parity(torch):
     for k, p in run.params.items():
         torch.testing.assert_close(p, ref.params[k], rtol=1e-4, atol=1e-6)
         max_err = max(max_err, (p - ref.params[k]).abs().max().item())
-    return {"batch": BATCH, "dtype": "float32", "loss": loss,
+    return {"batch": BATCH, "dtype": str(compute_dtype or torch.float32)[6:],
+            "pool_mode": mode or "default", "loss": loss,
             "loss_plain": want, "param_max_abs_err": max_err,
             "launches": launches}
 
 
-def _train_main_path(root: str):
+def _train_main_path(root: str, pool_kernel: str = "off"):
     """(b) ``cli perf`` at batch 256 in a subprocess: its JSON report and
     its records/sec line."""
     warmup, iters = 3, 10
     cmd = [sys.executable, "-m", "bigdl_tpu_torch.models.cli", "perf",
            "--model", "inception_v1", "-b", str(TRAIN_BATCH),
-           "--warmup", str(warmup), "-i", str(iters)]
+           "--warmup", str(warmup), "-i", str(iters),
+           "--pool-kernel", pool_kernel]
     env = dict(os.environ, PYTHONPATH=root)
     out = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
                          text=True, timeout=600)
@@ -877,7 +1202,9 @@ def _train_main_path(root: str):
     if not tail < first:
         raise RuntimeError(f"the loss did not fall on the fixed batch: "
                            f"{losses}")
-    expect_launches(report["launches"], PER_STEP, steps, f"{steps} steps")
+    per_step = POOL_PER_STEP["argmax"] if pool_kernel == "on" else PER_STEP
+    expect_launches(report["launches"], per_step, steps,
+                    f"{steps} steps (--pool-kernel {pool_kernel})")
     report["records_per_s"] = float(last.split()[1])
     report["last_line"] = last
     return report
@@ -938,7 +1265,73 @@ def phase_train(torch, card: str, root: str):
            "breakdown_ms": breakdown, "last_line": report["last_line"],
            "card": card}
     emit(row)
-    return report["launches"]
+    return report
+
+
+def _tie_split_main_path(torch, warmup: int = 3, iters: int = 10):
+    """(b) The ``cli perf`` step at batch 256 (bf16, dropout on, the same
+    seeds and batch) with ``split_ties()`` on every max pool, built here:
+    the JAX package reaches this mode through the layer method alone."""
+    from bigdl_tpu_torch.models import registry
+    from bigdl_tpu_torch.nn.criterion import ClassNLLCriterion
+    from bigdl_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from bigdl_tpu_torch.optim import SGD
+    from bigdl_tpu_torch.parallel import TrainStep
+
+    model = registry.build_model("inception_v1", 1000,
+                                 generator=torch.Generator().manual_seed(0))
+    if len(set_pool_mode(model, "tie")) != 13:
+        raise RuntimeError("Inception-v1 does not hold 13 max pools")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(TRAIN_BATCH, 3, 224, 224))
+                         .astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, 1000, TRAIN_BATCH)).cuda()
+    step = TrainStep(model, ClassNLLCriterion(),
+                     SGD(learning_rate=0.01, momentum=0.9),
+                     compute_dtype=torch.bfloat16, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    # the tie-split path: counts at 0 just before, read just after
+    reset_kernel_launches()
+    losses, wall = _timed_steps(torch, step, x, y, warmup, iters)
+    launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    steps = warmup + iters
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"tie-split losses {losses}")
+    if not sum(losses[-3:]) < sum(losses[:3]):
+        raise RuntimeError(f"the tie-split loss did not fall on the fixed "
+                           f"batch: {losses}")
+    expect_launches(launches, POOL_PER_STEP["tie"], steps,
+                    f"{steps} tie-split steps")
+    return {"losses": losses, "launches": launches,
+            "records_per_s": TRAIN_BATCH * iters / wall,
+            "step_ms": wall / iters * 1e3, "max_memory_allocated": peak}
+
+
+def phase_train_pool(torch, card: str, root: str, default: dict):
+    """The Inception-v1 step in each max-pool kernel mode, beside the
+    default step's numbers from ``phase_train``."""
+    parity = {"tie": _train_parity(torch, "tie"),
+              "argmax": _train_parity(torch, "argmax", torch.bfloat16)}
+    torch.cuda.empty_cache()
+    tie = _tie_split_main_path(torch)
+    torch.cuda.empty_cache()
+    argmax = _train_main_path(root, pool_kernel="on")
+    keys = ("records_per_s", "step_ms", "max_memory_allocated")
+    row = {"phase": "train_pool", "ok": True, "model": "inception_v1",
+           "batch": TRAIN_BATCH, "compute": "bf16", "parity": parity,
+           "tie_split": {**{k: tie[k] for k in keys},
+                         "losses": tie["losses"],
+                         "launches": tie["launches"],
+                         "launches_per_step": POOL_PER_STEP["tie"]},
+           "argmax": {**{k: argmax[k] for k in keys},
+                      "losses": argmax["losses"],
+                      "launches": argmax["launches"],
+                      "launches_per_step": POOL_PER_STEP["argmax"],
+                      "last_line": argmax["last_line"]},
+           "default": {k: default[k] for k in keys}, "card": card}
+    emit(row)
+    return tie["launches"], argmax["launches"]
 
 
 def _lm_parity(torch):
@@ -989,7 +1382,7 @@ def _lm_parity(torch):
             "launches": launches}
 
 
-def _lm_timed(torch, step, x, y, warmup: int = 3, iters: int = 10):
+def _timed_steps(torch, step, x, y, warmup: int = 3, iters: int = 10):
     """``warmup`` then ``iters`` timed steps, the clock read after a
     synchronise at the window's two ends only; the losses stay on the
     card until then."""
@@ -1044,7 +1437,7 @@ def phase_train_lm(torch, card: str):
     step, x, y = make_step("transformer_lm")
     torch.cuda.reset_peak_memory_stats()
     reset_kernel_launches()
-    losses, wall = _lm_timed(torch, step, x, y, warmup, iters)
+    losses, wall = _timed_steps(torch, step, x, y, warmup, iters)
     launches = kernel_launches()
     peak = torch.cuda.max_memory_allocated()
     steps = warmup + iters
@@ -1064,7 +1457,7 @@ def phase_train_lm(torch, card: str):
     for m in attns:
         m.backend = "dense"
     reset_kernel_launches()
-    dense_losses, dense_wall = _lm_timed(torch, step, x, y, warmup, iters)
+    dense_losses, dense_wall = _timed_steps(torch, step, x, y, warmup, iters)
     if any(kernel_launches().values()):
         raise RuntimeError("the dense step launched a kernel")
     if not all(math.isfinite(v) for v in dense_losses):
@@ -1104,7 +1497,9 @@ def path_summary(rows, dtype: str, launches: int, per: str) -> dict:
             "plain_ms": sum(r["plain_ms"] for r in sites),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": sum(r["library_ms"] for r in sites),
+            "library_ms": (None if any(r["library_ms"] is None
+                                       for r in sites)
+                           else sum(r["library_ms"] for r in sites)),
             "per": f"{per}, {dtype}: " + ", ".join(
                 f"{r['site']} {r['shape']}" for r in sites)}
 
@@ -1122,16 +1517,27 @@ def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     card = phase_build()
     rows = phase_kernels(torch) + phase_flash_kernels(torch)
+    phase_maxpool_edges(torch)
     serve_launches = phase_serve(torch, card)
-    launches = phase_train(torch, card, root)
+    default = phase_train(torch, card, root)
+    tie_launches, argmax_launches = phase_train_pool(torch, card, root,
+                                                     default)
     lm_launches = phase_train_lm(torch, card)
 
     # each path's numbers come from its own shapes and dtype: serving
     # runs the forwards in f32 at batch 8, training every Inception-v1
     # kernel in bf16 at batch 256 and every flash kernel in bf16 at batch
-    # 32; each row leads with its kernel's training path
-    paths = {"train": (launches, "bfloat16",
+    # 32; each row leads with its kernel's training path (the max-pool
+    # forward's with the tie-split one: its sites there and in the
+    # argmax step are three of the 13 pools)
+    paths = {"train": (default["launches"], "bfloat16",
                        f"one train step at batch {TRAIN_BATCH}"),
+             "train_tie": (tie_launches, "bfloat16",
+                           f"one tie-split train step at batch "
+                           f"{TRAIN_BATCH}"),
+             "train_argmax": (argmax_launches, "bfloat16",
+                              f"one argmax-index train step at batch "
+                              f"{TRAIN_BATCH}"),
              "train_lm": (lm_launches, "bfloat16",
                           f"one transformer_lm train step at batch "
                           f"{LM_BATCH}"),
@@ -1150,7 +1556,14 @@ def main() -> int:
             "flash_dq": ("bigdl_tpu_torch/csrc/flash_dq.cu",
                          "bigdl_tpu/ops/attention.py:266"),
             "flash_dkv": ("bigdl_tpu_torch/csrc/flash_dkv.cu",
-                          "bigdl_tpu/ops/attention.py:312")}
+                          "bigdl_tpu/ops/attention.py:312"),
+            "maxpool_fwd": ("bigdl_tpu_torch/csrc/maxpool_fwd.cu",
+                            "bigdl_tpu/ops/pool_pallas.py:125"),
+            "maxpool_tie_bwd": ("bigdl_tpu_torch/csrc/maxpool_tie_bwd.cu",
+                                "bigdl_tpu/ops/pool_pallas.py:133"),
+            "maxpool_argmax_bwd": (
+                "bigdl_tpu_torch/csrc/maxpool_argmax_bwd.cu",
+                "bigdl_tpu/ops/pooling_pallas.py:212")}
     summary = []
     for name, (source, replaces) in meta.items():
         entry = {"name": name, "route": "cuda", "source": source,

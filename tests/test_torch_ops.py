@@ -293,7 +293,9 @@ def test_cpu_backward_never_touches_the_kernels(monkeypatch):
                                  "cross_map_lrn_bwd": 0,
                                  "avg_pool_fwd": 0, "avg_pool_bwd": 0,
                                  "flash_fwd": 0, "flash_dq": 0,
-                                 "flash_dkv": 0}
+                                 "flash_dkv": 0, "maxpool_fwd": 0,
+                                 "maxpool_tie_bwd": 0,
+                                 "maxpool_argmax_bwd": 0}
 
 
 def _forbidden_build(*args, **kwargs):
