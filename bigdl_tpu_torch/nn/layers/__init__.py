@@ -1,2 +1,3 @@
-"""The layers of the Inception-v1 serving and training paths and of the
-transformer LM's training path."""
+"""The layers of the Inception-v1 serving and training paths, of the
+transformer LM's training path, and the within-channel LRN and the
+subtractive, divisive and contrastive normalizations."""

@@ -8,7 +8,7 @@ from typing import Callable, Dict
 
 def kernel_wrappers() -> Dict[str, Callable]:
     """Every kernel wrapper of the port, by kernel name."""
-    from bigdl_tpu_torch.ops import attention, lrn, pool, pooling
+    from bigdl_tpu_torch.ops import attention, lrn, norm, pool, pooling
 
     return {"cross_map_lrn_fwd": lrn.cross_map_lrn_forward,
             "cross_map_lrn_bwd": lrn.cross_map_lrn_backward,
@@ -19,7 +19,10 @@ def kernel_wrappers() -> Dict[str, Callable]:
             "flash_dkv": attention.flash_dkv,
             "maxpool_fwd": pool.maxpool_forward,
             "maxpool_tie_bwd": pool.maxpool_tie_split_backward,
-            "maxpool_argmax_bwd": pooling.maxpool_argmax_backward}
+            "maxpool_argmax_bwd": pooling.maxpool_argmax_backward,
+            "within_channel_lrn_fwd": lrn.within_channel_lrn_forward,
+            "within_channel_lrn_bwd": lrn.within_channel_lrn_backward,
+            "smooth2d": norm.smooth2d}
 
 
 def kernel_launches() -> Dict[str, int]:

@@ -37,8 +37,8 @@ BUILD_DIR = _PKG / "build"
 #: kernel sources, one shared library each
 SOURCES = ("lrn_fwd", "lrn_bwd", "avg_pool_fwd", "avg_pool_bwd", "flash_fwd",
            "flash_dq", "flash_dkv", "maxpool_fwd", "maxpool_tie_bwd",
-           "maxpool_argmax_bwd")
-_HEADERS = ("common.cuh", "flash.cuh")
+           "maxpool_argmax_bwd", "wcl_fwd", "wcl_bwd", "smooth2d")
+_HEADERS = ("common.cuh", "flash.cuh", "window.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -60,6 +60,9 @@ _SIGNATURES = {
     "maxpool_tie_bwd": ("bigdl_maxpool_tie_bwd", [_P] * 5 + [_I] * 12 + [_P]),
     "maxpool_argmax_bwd": ("bigdl_maxpool_argmax_bwd",
                            [_P] * 3 + [_I] * 12 + [_P]),
+    "wcl_fwd": ("bigdl_wcl_fwd", [_P] * 3 + [_I] * 5 + [_F] * 2 + [_I, _P]),
+    "wcl_bwd": ("bigdl_wcl_bwd", [_P] * 4 + [_I] * 5 + [_F] * 3 + [_I, _P]),
+    "smooth2d": ("bigdl_smooth2d", [_P] * 3 + [_I] * 11 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -65,6 +65,22 @@ line per phase; any failure ends it with a non-zero exit and no result:
               ``maxpool_tie_bwd`` or ``maxpool_argmax_bwd``) beside
               2/2/1/1 of the LRN and average-pool kernels; records/s,
               step ms and peak memory beside the default step's.
+7. norm    -- the within-channel LRN and the subtractive, divisive and
+              contrastive normalizations, none of which a registered
+              model uses, where the JAX package's kernel bench puts them
+              (bench_kernels.py:48-52): ``SpatialWithinChannelLRN(5,
+              1e-4, 0.75)`` at Inception-v1's LRN sites [256, 64, 56, 56]
+              and [256, 192, 56, 56], and the three smoothing layers
+              (9x9 Gaussian, threshold and thresval 1e-4) on the
+              headline input [256, 3, 224, 224].  Each layer runs one
+              forward and backward through autograd in bf16, then f32:
+              exactly 1 + 1 within-channel LRN launches, or 3, 3 and 6
+              smoothing launches (two forward, one transposed per
+              subtractive or divisive layer), and no other kernel; the
+              output and input gradient against the same pass through
+              the plain versions on the card (f32 at rtol 1e-5 / atol
+              1e-6, bf16 at 2e-2); ms per forward + backward beside the
+              plain versions' and peak memory.
 
 The kernels phase also holds the three max-pool kernels to their plain
 versions bit for bit: the forward without an index (tie-split) in f32
@@ -76,6 +92,14 @@ the edge geometries of the JAX package's pooling tests (ceil overflow,
 anisotropic windows, stride 1, global 7x7, the bottom-row residue
 shortfall) with tie-heavy inputs, all -inf windows, NaN, -0.0 beside
 +0.0 and an inf gradient (checked only).
+
+The kernels phase also holds the within-channel LRN forward and
+backward at the norm phase's two sites, and the smoothing kernel at its
+three call shapes (the [1, 224, 224] edge-coverage mass, the mean map
+of the [256, 224, 224] stack and its transpose), against their plain
+versions in f32 and bf16 and times them; the smoothing's yardstick is
+``F.conv2d`` with the kernel as a [1, 1, 9, 9] weight (TF32 off), the
+within-channel LRN has none.
 
 The kernels phase also holds the three flash-attention kernels against
 their plain versions in f32 and bf16 at the training shape
@@ -512,6 +536,110 @@ def _maxpool_cases(torch):
     return cases
 
 
+#: SpatialWithinChannelLRN(5, 1e-4, 0.75) (bench_kernels.py:77-78) at
+#: Inception-v1's two LRN sites, and the smoothing layers' defaults
+#: (9x9 Gaussian, threshold and thresval 1e-4) on its input planes
+WCL_HYPER = (5, 1e-4, 0.75)
+NORM_SHAPE = (TRAIN_BATCH, 3, 224, 224)
+#: kernel launches of one forward + backward of each normalization layer
+NORM_PER_PASS = {
+    "within_channel": {"within_channel_lrn_fwd": 1,
+                       "within_channel_lrn_bwd": 1},
+    "subtractive": {"smooth2d": 3}, "divisive": {"smooth2d": 3},
+    "contrastive": {"smooth2d": 6}}
+
+
+def _wcl_cases(torch):
+    """The within-channel LRN forward and backward at the norm path's
+    two sites; no single PyTorch call computes either."""
+    from bigdl_tpu_torch.ops import lrn
+
+    size, alpha, beta = WCL_HYPER
+    taps = size * size
+
+    def make_x(gen, shape, dtype):
+        return (torch.randn(shape, generator=gen, device="cuda").to(dtype),)
+
+    def make_bwd(gen, shape, dtype):
+        x = make_x(gen, shape, dtype)[0]
+        scale = lrn.within_channel_lrn_plain(x, size, alpha, beta)[1]
+        return x, scale, torch.randn(shape, generator=gen,
+                                     device="cuda").to(dtype)
+
+    cases = []
+    for site, c in LRN_SITES:
+        common = dict(path="norm", site=site, shape=(TRAIN_BATCH, c, 56, 56),
+                      library=None)
+        cases += [
+            dict(name="within_channel_lrn_fwd", make=make_x,
+                 kernel=lambda x: lrn.within_channel_lrn_forward(
+                     x, size, alpha, beta),
+                 plain=lambda x: lrn.within_channel_lrn_plain(
+                     x, size, alpha, beta),
+                 # x in; y and scale out; a square, the taps' adds, the
+                 # scale, its power and y per element
+                 bound=lambda x: (3 * x.numel() * x.element_size(),
+                                  x.numel() * (taps + 7)), **common),
+            dict(name="within_channel_lrn_bwd", make=make_bwd,
+                 kernel=lambda x, s, g: lrn.within_channel_lrn_backward(
+                     x, s, g, size, alpha, beta),
+                 plain=lambda x, s, g: lrn.within_channel_lrn_backward_plain(
+                     x, s, g, size, alpha, beta),
+                 # x, scale, g in; dx out; t and g*scale^-beta (two
+                 # powers), the taps' adds and dx per element
+                 bound=lambda x, s, g: (4 * x.numel() * x.element_size(),
+                                        x.numel() * (taps + 12)), **common)]
+    return cases
+
+
+def _smooth_cases(torch):
+    """The smoothing kernel as the normalizations call it on the
+    headline input: the mean map forward and its transpose on the
+    [256, 224, 224] stack, and the [1, 224, 224] edge-coverage mass.
+    The yardstick is ``F.conv2d`` of [B, 1, H, W] with the [1, 1, kh,
+    kw] kernel, the JAX XLA leg's own formulation, in full f32."""
+    from bigdl_tpu_torch.nn.layers.normalization import _gaussian_kernel
+    from bigdl_tpu_torch.ops import norm
+
+    F = torch.nn.functional
+    kernel = torch.from_numpy(_gaussian_kernel(9)).cuda()
+    kh, kw = kernel.shape
+
+    def make(gen, shape, dtype, ones=False):
+        if ones:
+            return (torch.ones(shape, dtype=dtype, device="cuda"),)
+        return (torch.randn(shape, generator=gen, device="cuda").to(dtype),)
+
+    def conv_inputs(v, flip):
+        w = kernel.flip(0, 1) if flip else kernel
+        return v[:, None], w.to(v.dtype)[None, None]
+
+    def conv(v4, w4):
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            return F.conv2d(v4, w4, padding=(kh // 2, kw // 2))[:, 0]
+
+    cases = []
+    for site, flip, shape, ones in (
+            ("coef [1,224,224]", False, (1, 224, 224), True),
+            ("mean map", False, NORM_SHAPE[:1] + NORM_SHAPE[2:], False),
+            ("transpose", True, NORM_SHAPE[:1] + NORM_SHAPE[2:], False)):
+        pads = (norm._transpose_pads if flip else norm._fwd_pads)(kh, kw)
+        cases.append(dict(
+            name="smooth2d", path="norm", site=site, shape=shape,
+            make=lambda gen, shape, dtype, ones=ones: make(gen, shape, dtype,
+                                                          ones),
+            kernel=lambda v, p=pads, f=flip: norm.smooth2d(v, kernel, p, f),
+            plain=lambda v, p=pads, f=flip: norm.smooth2d_plain(v, kernel, p,
+                                                                f),
+            library_inputs=lambda v, f=flip: conv_inputs(v, f),
+            library=conv,
+            # the stack in, the smoothed stack out; a multiply and an add
+            # per tap
+            bound=lambda v: (2 * v.numel() * v.element_size() + 4 * kh * kw,
+                             v.numel() * 2 * kh * kw)))
+    return cases
+
+
 def bit_equal(torch, got, want, what: str) -> None:
     """Raise unless every output of ``got`` has the bits of ``want``'s."""
     if isinstance(got, torch.Tensor):
@@ -539,7 +667,8 @@ def phase_kernels(torch):
              + _lrn_cases(torch, "train", TRAIN_BATCH)
              + _pool_cases(torch, "train", TRAIN_BATCH)
              + _lrn_bwd_cases(torch) + _pool_bwd_cases(torch)
-             + _maxpool_cases(torch))
+             + _maxpool_cases(torch) + _wcl_cases(torch)
+             + _smooth_cases(torch))
     tols = {torch.float32: dict(rtol=1e-5, atol=1e-6),
             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
     for case in cases:
@@ -952,28 +1081,55 @@ def _plain_max_pools(torch):
     return PlainTieSplit.apply, PlainArgmax.apply
 
 
+def _plain_within_channel_lrn(torch):
+    """Within-channel LRN through its plain versions, forward and
+    backward."""
+    from bigdl_tpu_torch.ops import lrn
+
+    class PlainWithinChannelLRN(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, size, alpha, beta):
+            y, scale = lrn.within_channel_lrn_plain(x, size, alpha, beta)
+            ctx.save_for_backward(x, scale)
+            ctx.hyper = (size, alpha, beta)
+            return y
+
+        @staticmethod
+        def backward(ctx, g):
+            x, scale = ctx.saved_tensors
+            dx = lrn.within_channel_lrn_backward_plain(
+                x, scale, g.contiguous(), *ctx.hyper)
+            return dx, None, None, None
+
+    return PlainWithinChannelLRN.apply
+
+
 @contextlib.contextmanager
 def plain_versions(torch):
     """Route the layers to the plain versions of their kernels, forward
     and backward (the reference model on the card).  Lives here and
     nowhere in the package: the package never swaps a kernel out."""
     from bigdl_tpu_torch.nn.layers import normalization, pooling
-    from bigdl_tpu_torch.ops import attention
+    from bigdl_tpu_torch.ops import attention, norm
 
     saved = (normalization.cross_map_lrn, pooling.avg_pool,
              pooling.maxpool_tie_split, pooling.maxpool_argmax,
-             attention.flash_attention)
+             attention.flash_attention, normalization.within_channel_lrn,
+             norm.smooth2d)
     normalization.cross_map_lrn = _plain_lrn(torch)
     pooling.avg_pool = _plain_avg_pool(torch)
     pooling.maxpool_tie_split, pooling.maxpool_argmax = \
         _plain_max_pools(torch)
     attention.flash_attention = _plain_flash(torch)
+    normalization.within_channel_lrn = _plain_within_channel_lrn(torch)
+    norm.smooth2d = norm.smooth2d_plain
     try:
         yield
     finally:
         (normalization.cross_map_lrn, pooling.avg_pool,
          pooling.maxpool_tie_split, pooling.maxpool_argmax,
-         attention.flash_attention) = saved
+         attention.flash_attention, normalization.within_channel_lrn,
+         norm.smooth2d) = saved
 
 
 def _post(port, body: bytes):
@@ -1484,6 +1640,90 @@ def phase_train_lm(torch, card: str):
     return launches
 
 
+def _norm_layers(torch):
+    """(name, kind, layer, input shape) of the norm path: the
+    within-channel LRN at both LRN sites, the three smoothing layers on
+    the headline input."""
+    from bigdl_tpu_torch import nn
+
+    return ([(f"within_channel {site}", "within_channel",
+              nn.SpatialWithinChannelLRN(*WCL_HYPER), (TRAIN_BATCH, c, 56, 56))
+             for site, c in LRN_SITES]
+            + [(kind, kind, cls(3), NORM_SHAPE) for kind, cls in (
+                ("subtractive", nn.SpatialSubtractiveNormalization),
+                ("divisive", nn.SpatialDivisiveNormalization),
+                ("contrastive", nn.SpatialContrastiveNormalization))])
+
+
+def _forward_backward(torch, layer, x, g):
+    xr = x.detach().requires_grad_()
+    y = layer(xr)
+    (dx,) = torch.autograd.grad(y, xr, g)
+    return y.detach(), dx
+
+
+def phase_norm(torch, card: str):
+    """The four normalization layers, each one forward and backward
+    through autograd at full width, in bf16 and then f32: exactly the
+    launches of ``NORM_PER_PASS`` and no other kernel, the output and
+    the input gradient against the same pass through the plain versions
+    on the card, then ms per forward + backward (kernels and plain) and
+    peak memory.  Returns the bf16 pass's launches summed over the
+    layers."""
+    from bigdl_tpu_torch.ops import kernel_launches, reset_kernel_launches
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    tols = {torch.float32: dict(rtol=1e-5, atol=1e-6),
+            torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+    path_launches = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        total = {}
+        for name, kind, layer, shape in _norm_layers(torch):
+            layer = layer.cuda()
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_kernel_launches()
+            y, dx = _forward_backward(torch, layer, x, g)
+            torch.cuda.synchronize()
+            launches = kernel_launches()
+            peak = torch.cuda.max_memory_allocated()
+            expect_launches(launches, NORM_PER_PASS[kind], 1,
+                            f"{name} {str(dtype)[6:]}")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+            with plain_versions(torch):
+                want_y, want_dx = _forward_backward(torch, layer, x, g)
+                torch.cuda.synchronize()
+                plain_ms = event_ms(torch, lambda: _forward_backward(
+                    torch, layer, x, g), [()], calls=5)
+            if kernel_launches() != launches:
+                raise RuntimeError(f"{name}: the plain-version pass reached "
+                                   f"a kernel")
+            for got, want in ((y, want_y), (dx, want_dx)):
+                if got.shape != x.shape or not torch.isfinite(got).all():
+                    raise RuntimeError(f"{name}: output not finite or of "
+                                       f"shape {tuple(got.shape)}")
+                torch.testing.assert_close(got, want, **tols[dtype])
+            ms = event_ms(torch, lambda: _forward_backward(torch, layer, x,
+                                                           g), [()], calls=5)
+            emit({"phase": "norm", "layer": name, "shape": list(shape),
+                  "dtype": str(dtype)[6:], "launches": launches,
+                  "max_abs_err_y": (y.float() - want_y.float()).abs().max()
+                  .item(),
+                  "max_abs_err_dx": (dx.float() - want_dx.float()).abs()
+                  .max().item(), "tolerance": tols[dtype],
+                  "ms_per_forward_backward": ms,
+                  "plain_ms_per_forward_backward": plain_ms,
+                  "peak_bytes": peak, "card": card})
+            del x, g, y, dx, want_y, want_dx
+            torch.cuda.empty_cache()
+        if dtype == torch.bfloat16:
+            path_launches = total
+    return path_launches
+
+
 def path_summary(rows, dtype: str, launches: int, per: str) -> dict:
     """One kernel on one path: its launches there, and the sum over the
     path's call sites of the times and the bound in the path's dtype
@@ -1523,6 +1763,7 @@ def main() -> int:
     tie_launches, argmax_launches = phase_train_pool(torch, card, root,
                                                      default)
     lm_launches = phase_train_lm(torch, card)
+    norm_launches = phase_norm(torch, card)
 
     # each path's numbers come from its own shapes and dtype: serving
     # runs the forwards in f32 at batch 8, training every Inception-v1
@@ -1542,7 +1783,10 @@ def main() -> int:
                           f"one transformer_lm train step at batch "
                           f"{LM_BATCH}"),
              "serve": (serve_launches, "float32",
-                       f"one served forward at batch {BATCH}")}
+                       f"one served forward at batch {BATCH}"),
+             "norm": (norm_launches, "bfloat16",
+                      f"one forward + backward of each normalization "
+                      f"layer at batch {TRAIN_BATCH}")}
     meta = {"cross_map_lrn_fwd": ("bigdl_tpu_torch/csrc/lrn_fwd.cu",
                                   "bigdl_tpu/ops/lrn_pallas.py:103"),
             "avg_pool_fwd": ("bigdl_tpu_torch/csrc/avg_pool_fwd.cu",
@@ -1563,7 +1807,13 @@ def main() -> int:
                                 "bigdl_tpu/ops/pool_pallas.py:133"),
             "maxpool_argmax_bwd": (
                 "bigdl_tpu_torch/csrc/maxpool_argmax_bwd.cu",
-                "bigdl_tpu/ops/pooling_pallas.py:212")}
+                "bigdl_tpu/ops/pooling_pallas.py:212"),
+            "within_channel_lrn_fwd": ("bigdl_tpu_torch/csrc/wcl_fwd.cu",
+                                       "bigdl_tpu/ops/lrn_pallas.py:293"),
+            "within_channel_lrn_bwd": ("bigdl_tpu_torch/csrc/wcl_bwd.cu",
+                                       "bigdl_tpu/ops/lrn_pallas.py:307"),
+            "smooth2d": ("bigdl_tpu_torch/csrc/smooth2d.cu",
+                         "bigdl_tpu/ops/norm_pallas.py:82")}
     summary = []
     for name, (source, replaces) in meta.items():
         entry = {"name": name, "route": "cuda", "source": source,

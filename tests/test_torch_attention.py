@@ -43,23 +43,19 @@ def _qkv(sq, sk, d=16, h=2, seed=0):
                 ids=[f"{sq}x{sk}{'-causal' if c else ''}"
                      for sq, sk, c in FLASH_CASES])
 def flash_case(request):
-    """One case's inputs and the JAX results: ``_flash_fwd_impl``'s
-    (out, lse) and ``jax.vjp`` of ``flash_attention``, both in Pallas
-    interpret mode, under one jit so they share a compile."""
+    """One case's inputs and the JAX results: the forward rule of
+    ``flash_attention``'s custom VJP, (out, lse), and its backward rule
+    at ``do`` (what ``jax.vjp`` of ``flash_attention`` runs), both in
+    Pallas interpret mode, under one jit so they share a compile and the
+    forward is traced once."""
     sq, sk, causal = request.param
     q, k, v, do = _qkv(sq, sk)
     scale = 1.0 / np.sqrt(q.shape[-1])
-
-    def attend(q_, k_, v_):
-        return jatt.flash_attention(q_, k_, v_, causal=causal,
-                                    block_q=BLOCK, block_k=BLOCK,
-                                    interpret=True)
+    hyper = (float(scale), causal, BLOCK, BLOCK, True)
 
     def run(q_, k_, v_, do_):
-        out, lse = jatt._flash_fwd_impl(q_, k_, v_, scale, causal, BLOCK,
-                                        BLOCK, True)
-        _, vjp = jax.vjp(attend, q_, k_, v_)
-        return out, lse, vjp(do_)
+        out, res = jatt._flash_fwd_rule(q_, k_, v_, *hyper)
+        return out, res[4], jatt._flash_bwd_rule(*hyper, res, do_)
 
     out, lse, grads = jax.jit(run)(*map(jnp.asarray, (q, k, v, do)))
     return dict(inputs=(q, k, v, do), scale=float(scale), causal=causal,

@@ -42,7 +42,7 @@ def test_importing_the_port_loads_neither_jax_nor_bigdl_tpu():
             "import bigdl_tpu_torch.parallel, bigdl_tpu_torch.nn.criterion\n"
             "import bigdl_tpu_torch.ops.attention, bigdl_tpu_torch.bench_configs\n"
             "import bigdl_tpu_torch.models.transformer\n"
-            "import bigdl_tpu_torch.ops.pooling\n"
+            "import bigdl_tpu_torch.ops.pooling, bigdl_tpu_torch.ops.norm\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'bigdl_tpu'))\n"
             "print(bad)\n")

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import bigdl_tpu.nn as jnn
@@ -29,7 +30,8 @@ def _check(jax_layer, torch_layer, x, rtol, atol=1e-6):
     both in eval mode on ``x`` and compare."""
     state = {k: np.asarray(v) for k, v in jax_state_dict(jax_layer).items()}
     tnn.load_state_dict(torch_layer, from_jax_state(state, "cpu", torch_layer))
-    want = np.asarray(jax_layer.evaluate().forward(jnp.asarray(x)))
+    # jitted: eager dispatch compiles every small op on its own
+    want = np.asarray(jax.jit(jax_layer.evaluate().forward)(jnp.asarray(x)))
     with torch.no_grad():
         got = torch_layer.evaluate()(torch.from_numpy(x)).numpy()
     assert got.shape == want.shape

@@ -11,7 +11,8 @@ in interpret mode (all three divide and sum the same terms in the same
 order in f32); argmax-mode bf16 values, indices and gradients bit for
 bit (the gradients are drawn from powers of two, so every sum is exact
 in bf16); the training steps as in ``test_torch_train.py``.  The JAX
-results are jitted, one compile per geometry, to keep the file cheap.
+results are jitted, the geometries of a fixture in one compile, to keep
+the file cheap.
 """
 
 import numpy as np
@@ -89,21 +90,41 @@ def _jax_tie(x, dims, strides, pads, gy):
 TIE_PARAMS = [(i, tie) for i in range(len(POOL_CASES)) for tie in (False, True)]
 
 
+def _jit_all(jobs, arrays):
+    """``{key: fn(*arrays[key])}`` for ``jobs = {key: fn}``, all in one
+    jitted call: each small jit costs about 0.1 s of its own here, several
+    times the work of one geometry."""
+    out = jax.jit(lambda a: {k: fn(*a[k]) for k, fn in jobs.items()})(
+        {k: tuple(map(jnp.asarray, v)) for k, v in arrays.items()})
+    return {k: tuple(np.asarray(r, np.float32)
+                     if jnp.issubdtype(r.dtype, jnp.floating)
+                     else np.asarray(r) for r in v) for k, v in out.items()}
+
+
+def _vjp_of(fn):
+    """``(x, gy) -> (fn(x), vjp at gy)``."""
+    def both(a, g):
+        y, vjp = jax.vjp(fn, a)
+        return y, vjp(g)[0]
+    return both
+
+
 @pytest.fixture(scope="module")
 def tie_refs():
     """The JAX XLA leg's y and dx for every POOL_CASES geometry, tie-heavy
     and not."""
-    refs = {}
+    jobs, arrays = {}, {}
+    for i, tie in TIE_PARAMS:
+        shape, k, s, p = POOL_CASES[i]
+        dims, strides, pads = _full(k, s, p)
+        gy_shape = tuple(pool._out_sizes(shape, dims, strides, pads))
+        arrays[i, tie] = (_x(shape, 30 + i, tie), _x(gy_shape, 40 + i))
+        jobs[i, tie] = _vjp_of(lambda a, g=(dims, strides, pads):
+                               jpool.maxpool_tie_split(a, *g))
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("BIGDL_KERNELS", "xla")
-        for i, tie in TIE_PARAMS:
-            shape, k, s, p = POOL_CASES[i]
-            dims, strides, pads = _full(k, s, p)
-            x = _x(shape, 30 + i, tie)
-            gy_shape = tuple(pool._out_sizes(shape, dims, strides, pads))
-            gy = _x(gy_shape, 40 + i)
-            refs[i, tie] = (x, gy) + _jax_tie(x, dims, strides, pads, gy)
-    return refs
+        out = _jit_all(jobs, arrays)
+    return {key: arrays[key] + out[key] for key in jobs}
 
 
 @pytest.mark.parametrize("case,tie_heavy", TIE_PARAMS)
@@ -117,16 +138,35 @@ def test_tie_split_matches_the_jax_xla_leg(case, tie_heavy, tie_refs):
     np.testing.assert_allclose(dx.sum().item(), gy.sum(), rtol=1e-5)
 
 
-@pytest.mark.parametrize("shape,k,s,p", [
+TIE_PALLAS_CASES = [
     ((1, 2, 12, 12), (3, 3), (2, 2), ((0, 1), (0, 1))),   # ceil 3x3/s2
     ((1, 2, 7, 7), (3, 3), (1, 1), ((1, 1), (1, 1))),     # 3x3/s1/p1
-])
-def test_tie_split_matches_the_pallas_kernels(shape, k, s, p, monkeypatch):
-    monkeypatch.setenv("BIGDL_KERNELS", "pallas")
+]
+
+
+@pytest.fixture(scope="module")
+def tie_pallas_refs():
+    """The Pallas kernels' (interpret mode) y and dx for each of
+    ``TIE_PALLAS_CASES``."""
+    jobs, arrays = {}, {}
+    for i, (shape, k, s, p) in enumerate(TIE_PALLAS_CASES):
+        dims, strides, pads = _full(k, s, p)
+        gy_shape = tuple(pool._out_sizes(shape, dims, strides, pads))
+        arrays[i] = (_x(shape, 50, tie_heavy=True), _x(gy_shape, 51))
+        jobs[i] = _vjp_of(lambda a, g=(dims, strides, pads):
+                          jpool.maxpool_tie_split(a, *g))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("BIGDL_KERNELS", "pallas")
+        out = _jit_all(jobs, arrays)
+    return {i: arrays[i] + out[i] for i in jobs}
+
+
+@pytest.mark.parametrize("case", range(len(TIE_PALLAS_CASES)),
+                         ids=["shape0-k0-s0-p0", "shape1-k1-s1-p1"])
+def test_tie_split_matches_the_pallas_kernels(case, tie_pallas_refs):
+    _, k, s, p = TIE_PALLAS_CASES[case]
     dims, strides, pads = _full(k, s, p)
-    x = _x(shape, 50, tie_heavy=True)
-    gy = _x(tuple(pool._out_sizes(shape, dims, strides, pads)), 51)
-    want_y, want_dx = _jax_tie(x, dims, strides, pads, gy)
+    x, gy, want_y, want_dx = tie_pallas_refs[case]
     y, dx = _port_tie(x, dims, strides, pads, gy)
     np.testing.assert_array_equal(y.numpy(), want_y)
     np.testing.assert_array_equal(dx.numpy(), want_dx)
@@ -192,16 +232,14 @@ def _port_bf16(xj):
 @pytest.fixture(scope="module")
 def packed_refs():
     """``_fwd_packed``'s y and idx for every CASES geometry, tie-heavy and
-    not (one jit each)."""
-    refs = {}
-    fwd = jax.jit(jpooling._fwd_packed, static_argnums=(1, 2, 3))
+    not."""
+    jobs, arrays = {}, {}
     for i, tie in ARG_PARAMS:
         shape, k, s, p = CASES[i]
-        dims, strides, pads = _full(k, s, p)
-        xj = _bf16(shape, 70 + i, tie)
-        y, idx = fwd(xj, dims, strides, pads)
-        refs[i, tie] = (xj, np.asarray(y, np.float32), np.asarray(idx))
-    return refs
+        arrays[i, tie] = (_bf16(shape, 70 + i, tie),)
+        jobs[i, tie] = lambda a, g=_full(k, s, p): jpooling._fwd_packed(a, *g)
+    out = _jit_all(jobs, arrays)
+    return {key: arrays[key] + out[key] for key in jobs}
 
 
 @pytest.mark.parametrize("case,tie_heavy", ARG_PARAMS)
@@ -224,34 +262,56 @@ def _port_argmax(xj, dims, strides, pads, gy):
     return y.detach(), dx
 
 
-@pytest.mark.parametrize("case", [6, 0])   # the shortfall, ceil 3x3/s2
-def test_argmax_backward_matches_the_pallas_vjp(case, monkeypatch):
+ARGMAX_PALLAS = (6, 0)                # the shortfall, ceil 3x3/s2
+ARGMAX_SCATTER = (1, 2, 3, 4, 5)
+
+
+@pytest.fixture(scope="module")
+def argmax_bwd_refs():
+    """y and dx of the JAX argmax VJP on its Pallas kernels (interpret
+    mode) for ``ARGMAX_PALLAS``, and of select-and-scatter (the VJP of
+    ``reduce_window`` max) for ``ARGMAX_SCATTER``; ``{(kind, case):
+    (xj, gy, y, dx)}``."""
+    jobs, arrays = {}, {}
+    for kind, cases, seed in (("pallas", ARGMAX_PALLAS, 80),
+                              ("scatter", ARGMAX_SCATTER, 90)):
+        for case in cases:
+            shape, k, s, p = CASES[case]
+            g = _full(k, s, p)
+            arrays[kind, case] = (
+                _bf16(shape, seed + case, tie_heavy=True),
+                _pow2_grads(np.random.default_rng(case),
+                            pool._out_sizes(shape, *g)))
+            jobs[kind, case] = _vjp_of(
+                (lambda a, g=g: jpooling.maxpool_argmax(a, *g))
+                if kind == "pallas" else
+                (lambda a, g=g: lax.reduce_window(a, -jnp.inf, lax.max, *g)))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("BIGDL_POOL_KERNEL", "interpret")
+        out = _jit_all(jobs, arrays)
+    return {k: arrays[k] + out[k] for k in jobs}
+
+
+@pytest.mark.parametrize("case", ARGMAX_PALLAS)
+def test_argmax_backward_matches_the_pallas_vjp(case, argmax_bwd_refs,
+                                                monkeypatch):
     monkeypatch.setenv("BIGDL_POOL_KERNEL", "interpret")
     shape, k, s, p = CASES[case]
     dims, strides, pads = _full(k, s, p)
-    xj = _bf16(shape, 80 + case, tie_heavy=True)
+    xj, gy, y_ref, dx_ref = argmax_bwd_refs["pallas", case]
     assert jpooling.pallas_pool_supported(xj, dims, strides, pads)
     assert pooling.pool_kernel_supported(_port_bf16(xj), dims, strides, pads,
                                          True)
-    gy = _pow2_grads(np.random.default_rng(case),
-                     pool._out_sizes(shape, dims, strides, pads))
-    y_ref, dx_ref = _jax_vjp(
-        lambda a: jpooling.maxpool_argmax(a, dims, strides, pads), xj, gy)
     y, dx = _port_argmax(xj, dims, strides, pads, gy)
     _bits_equal(y, y_ref)
     _bits_equal(dx, dx_ref)
 
 
-@pytest.mark.parametrize("case", [1, 2, 3, 4, 5])
-def test_argmax_backward_matches_select_and_scatter(case):
+@pytest.mark.parametrize("case", ARGMAX_SCATTER)
+def test_argmax_backward_matches_select_and_scatter(case, argmax_bwd_refs):
     shape, k, s, p = CASES[case]
     dims, strides, pads = _full(k, s, p)
-    xj = _bf16(shape, 90 + case, tie_heavy=True)
-    gy = _pow2_grads(np.random.default_rng(case),
-                     pool._out_sizes(shape, dims, strides, pads))
-    y_ref, dx_ref = _jax_vjp(
-        lambda a: lax.reduce_window(a, -jnp.inf, lax.max, dims, strides,
-                                    pads), xj, gy)
+    xj, gy, y_ref, dx_ref = argmax_bwd_refs["scatter", case]
     y, dx = _port_argmax(xj, dims, strides, pads, gy)
     _bits_equal(y, y_ref)
     _bits_equal(dx, dx_ref)
@@ -536,9 +596,9 @@ def test_class_nll_out_of_range_targets_match_jax(weights):
         jc = jnn.ClassNLLCriterion(weights=weights)
         tc = tnn.ClassNLLCriterion(weights=weights)
         t = np.asarray(target)
-        want = jc.forward(jnp.asarray(logp), jnp.asarray(t))
-        want_g = jax.grad(lambda a: jc.forward(a, jnp.asarray(t)))(
-            jnp.asarray(logp))
+        # one jitted call: eager dispatch compiles every small op alone
+        want, want_g = jax.jit(jax.value_and_grad(
+            lambda a: jc.forward(a, jnp.asarray(t))))(jnp.asarray(logp))
         inp = torch.from_numpy(logp.copy()).requires_grad_()
         got = tc.forward(inp, torch.from_numpy(t))
         got.backward()

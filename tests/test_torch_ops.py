@@ -12,6 +12,8 @@ CUDA kernels themselves are held to these plain versions on the card by
 ``chip_smoke.py``.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -21,7 +23,7 @@ import jax.numpy as jnp
 
 from bigdl_tpu.nn.layers import pooling as jax_pooling
 from bigdl_tpu.ops import pool_pallas as jax_pool
-from bigdl_tpu.ops.lrn_pallas import cross_map_lrn
+from bigdl_tpu.ops.lrn_pallas import _cml_fwd_pallas, cross_map_lrn
 from bigdl_tpu_torch import resolve_device
 from bigdl_tpu_torch.nn.layers.pooling import _axis_padding
 from bigdl_tpu_torch.ops import (_build, kernel_launches, lrn, pool,
@@ -31,6 +33,73 @@ from test_torch_slice import one_thread  # noqa: F401
 
 def _x(shape, seed=0):
     return np.random.RandomState(seed).randn(*shape).astype(np.float32)
+
+
+def _vjp_of(fn):
+    """``(x, g) -> fn``'s VJP at ``x`` and ``g``."""
+    def both(a, ga):
+        return jax.vjp(fn, a)[1](ga)[0]
+    return both
+
+
+def _jobs():
+    """Every JAX reference of this file: ``{key: (fn, inputs)}``."""
+    bf16 = functools.partial(jnp.asarray, dtype=jnp.bfloat16)
+    jobs = {}
+    for shape, size, alpha, beta, k in LRN_CASES:
+        jobs["lrn", shape, size, alpha, beta, k] = (
+            lambda a, h=(size, alpha, beta, k): cross_map_lrn(a, *h),
+            (_x(shape),))
+    jobs["lrn_den"] = (lambda a: _cml_fwd_pallas(a, 5, 1.0, 0.75, 2.0),
+                       (_x((2, 7, 5, 5), seed=3),))
+    jobs["lrn_bf16"] = (lambda a: cross_map_lrn(a, 5, 1e-4, 0.75, 1.0),
+                        (bf16(_x((2, 8, 8, 8), seed=2)),))
+    for case in POOL_CASES:
+        geom = _geom(*case)
+        for cip in (True, False):
+            jobs["pool", case, cip] = (
+                lambda a, g=geom, c=cip: jax_pool.avg_pool(a, *g, c, True),
+                (_x(case[0], seed=9),))
+    geom = _geom((2, 4, 14, 14), 5, 3, 0, True)
+    jobs["pool_bf16"] = (
+        lambda a: jax_pool.avg_pool(a, *geom, True, True),
+        (bf16(_x((2, 4, 14, 14), seed=4)),))
+    for shape, size, alpha, beta, k in LRN_BWD_CASES:
+        jobs["lrn_bwd", shape, size, alpha, beta, k] = (
+            _vjp_of(lambda a, h=(size, alpha, beta, k): cross_map_lrn(a, *h)),
+            (_x(shape, seed=5), _x(shape, seed=6)))
+    jobs["lrn_bwd_bf16"] = (
+        _vjp_of(lambda a: cross_map_lrn(a, 5, 1.0, 0.75, 1.0)),
+        (bf16(_x((2, 8, 6, 6), seed=7)), bf16(_x((2, 8, 6, 6), seed=8))))
+    for case in POOL_BWD_CASES:
+        geom = _geom(*case)
+        gy_shape = tuple(pool._out_sizes(case[0], *geom[:3]))
+        for cip in (True, False):
+            jobs["pool_bwd", case, cip] = (
+                _vjp_of(lambda a, g=geom, c=cip:
+                        jax_pool.avg_pool(a, *g, c, True)),
+                (_x(case[0], seed=10), _x(gy_shape, seed=11)))
+    geom = _geom((2, 4, 14, 14), 5, 3, 0, True)
+    gy_shape = tuple(pool._out_sizes((2, 4, 14, 14), *geom[:3]))
+    jobs["pool_bwd_bf16"] = (
+        _vjp_of(lambda a, g=geom: jax_pool.avg_pool(a, *g, True, True)),
+        (bf16(_x((2, 4, 14, 14), seed=12)), bf16(_x(gy_shape, seed=13))))
+    return jobs
+
+
+@pytest.fixture(scope="module")
+def refs():
+    """The results of :func:`_jobs` on the JAX ops' Pallas legs (interpret
+    mode), all in one jitted call: eager dispatch compiles every small op
+    of an interpret-mode kernel on its own, and each jit of its own costs
+    about 0.1 s here."""
+    jobs = list(_jobs().items())   # a pytree's dict keys must sort: index
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("BIGDL_KERNELS", "pallas")
+        out = jax.jit(lambda a: [fn(*a[i]) for i, (_, (fn, _)) in
+                                 enumerate(jobs)])(
+            [tuple(map(jnp.asarray, args)) for _, (_, args) in jobs])
+    return {key: r for (key, _), r in zip(jobs, out)}
 
 
 # ---------------------------------------------------------------------------
@@ -47,21 +116,16 @@ LRN_CASES = [
 
 
 @pytest.mark.parametrize("shape,size,alpha,beta,k", LRN_CASES)
-def test_cross_map_lrn_matches_pallas(shape, size, alpha, beta, k,
-                                      monkeypatch):
-    monkeypatch.setenv("BIGDL_KERNELS", "pallas")
+def test_cross_map_lrn_matches_pallas(shape, size, alpha, beta, k, refs):
     x = _x(shape)
-    want = np.asarray(cross_map_lrn(jnp.asarray(x), size, alpha, beta, k))
+    want = np.asarray(refs["lrn", shape, size, alpha, beta, k])
     got = lrn.cross_map_lrn_forward(torch.from_numpy(x), size, alpha, beta, k)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
 
 
-def test_cross_map_lrn_den_matches_pallas(monkeypatch):
-    from bigdl_tpu.ops.lrn_pallas import _cml_fwd_pallas
-
-    monkeypatch.setenv("BIGDL_KERNELS", "pallas")
+def test_cross_map_lrn_den_matches_pallas(refs):
     x = _x((2, 7, 5, 5), seed=3)
-    want_y, want_den = _cml_fwd_pallas(jnp.asarray(x), 5, 1.0, 0.75, 2.0)
+    want_y, want_den = refs["lrn_den"]
     y, den = lrn.cross_map_lrn_forward(torch.from_numpy(x), 5, 1.0, 0.75,
                                        2.0, want_den=True)
     np.testing.assert_allclose(y.numpy(), np.asarray(want_y),
@@ -70,10 +134,9 @@ def test_cross_map_lrn_den_matches_pallas(monkeypatch):
                                rtol=1e-5, atol=1e-6)
 
 
-def test_cross_map_lrn_bf16_matches_pallas(monkeypatch):
-    monkeypatch.setenv("BIGDL_KERNELS", "pallas")
+def test_cross_map_lrn_bf16_matches_pallas(refs):
     x = _x((2, 8, 8, 8), seed=2)
-    want = cross_map_lrn(jnp.asarray(x, jnp.bfloat16), 5, 1e-4, 0.75, 1.0)
+    want = refs["lrn_bf16"]
     got = lrn.cross_map_lrn_forward(torch.from_numpy(x).bfloat16(), 5, 1e-4,
                                     0.75, 1.0)
     assert got.dtype == torch.bfloat16
@@ -111,16 +174,15 @@ POOL_CASES = [
 @pytest.mark.parametrize("count_include_pad", [True, False])
 @pytest.mark.parametrize("shape,k,s,p,ceil", POOL_CASES)
 def test_avg_pool_matches_pallas(shape, k, s, p, ceil, count_include_pad,
-                                 monkeypatch):
-    monkeypatch.setenv("BIGDL_KERNELS", "pallas")
+                                 refs):
     dims, strides, pads, declared = _geom(shape, k, s, p, ceil)
     key = (shape, dims, strides, pads, declared, count_include_pad)
     # the divisor map is the JAX package's, value for value
     np.testing.assert_array_equal(pool._np_inv_counts(*key),
                                   jax_pool._np_inv_counts(*key))
     x = _x(shape, seed=9)
-    want = np.asarray(jax_pool.avg_pool(jnp.asarray(x), dims, strides, pads,
-                                        declared, count_include_pad, True))
+    want = np.asarray(refs["pool", (shape, k, s, p, ceil),
+                           count_include_pad])
     got = pool.avg_pool_forward(torch.from_numpy(x), dims, strides, pads,
                                 declared, count_include_pad)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
@@ -141,13 +203,11 @@ def test_avg_pool_kernel_divisor_plane_covers_the_output(k, s):
     np.testing.assert_array_equal(plane.numpy(), want.astype(np.float32))
 
 
-def test_avg_pool_bf16_matches_pallas(monkeypatch):
-    monkeypatch.setenv("BIGDL_KERNELS", "pallas")
+def test_avg_pool_bf16_matches_pallas(refs):
     shape = (2, 4, 14, 14)
     dims, strides, pads, declared = _geom(shape, 5, 3, 0, True)
     x = _x(shape, seed=4)
-    want = jax_pool.avg_pool(jnp.asarray(x, jnp.bfloat16), dims, strides,
-                             pads, declared, True, True)
+    want = refs["pool_bf16"]
     got = pool.avg_pool_forward(torch.from_numpy(x).bfloat16(), dims,
                                 strides, pads, declared, True)
     assert got.dtype == torch.bfloat16
@@ -169,18 +229,11 @@ LRN_BWD_CASES = [
 ]
 
 
-def _lrn_vjp(x, g, size, alpha, beta, k, dtype=jnp.float32):
-    _, vjp = jax.vjp(lambda a: cross_map_lrn(a, size, alpha, beta, k),
-                     jnp.asarray(x, dtype))
-    return vjp(jnp.asarray(g, dtype))[0]
-
-
 @pytest.mark.parametrize("shape,size,alpha,beta,k", LRN_BWD_CASES)
 def test_cross_map_lrn_backward_matches_pallas_vjp(shape, size, alpha, beta,
-                                                   k, monkeypatch):
-    monkeypatch.setenv("BIGDL_KERNELS", "pallas")
+                                                   k, refs):
     x, g = _x(shape, seed=5), _x(shape, seed=6)
-    want = np.asarray(_lrn_vjp(x, g, size, alpha, beta, k))
+    want = np.asarray(refs["lrn_bwd", shape, size, alpha, beta, k])
     xt = torch.from_numpy(x).requires_grad_()
     y = lrn.cross_map_lrn(xt, size, alpha, beta, k)
     (got,) = torch.autograd.grad(y, xt, torch.from_numpy(g))
@@ -192,10 +245,9 @@ def test_cross_map_lrn_backward_matches_pallas_vjp(shape, size, alpha, beta,
     np.testing.assert_array_equal(plain.numpy(), got.numpy())
 
 
-def test_cross_map_lrn_backward_bf16_matches_pallas_vjp(monkeypatch):
-    monkeypatch.setenv("BIGDL_KERNELS", "pallas")
+def test_cross_map_lrn_backward_bf16_matches_pallas_vjp(refs):
     x, g = _x((2, 8, 6, 6), seed=7), _x((2, 8, 6, 6), seed=8)
-    want = _lrn_vjp(x, g, 5, 1.0, 0.75, 1.0, jnp.bfloat16)
+    want = refs["lrn_bwd_bf16"]
     xt = torch.from_numpy(x).bfloat16().requires_grad_()
     y = lrn.cross_map_lrn(xt, 5, 1.0, 0.75, 1.0)
     (got,) = torch.autograd.grad(y, xt, torch.from_numpy(g).bfloat16())
@@ -214,38 +266,28 @@ POOL_BWD_CASES = [
 ]
 
 
-def _pool_vjp(x, gy, dims, strides, pads, declared, cip, dtype=jnp.float32):
-    _, vjp = jax.vjp(lambda a: jax_pool.avg_pool(a, dims, strides, pads,
-                                                 declared, cip, True),
-                     jnp.asarray(x, dtype))
-    return vjp(jnp.asarray(gy, dtype))[0]
-
-
 @pytest.mark.parametrize("count_include_pad", [True, False])
 @pytest.mark.parametrize("shape,k,s,p,ceil", POOL_BWD_CASES)
 def test_avg_pool_backward_matches_pallas_vjp(shape, k, s, p, ceil,
-                                              count_include_pad, monkeypatch):
-    monkeypatch.setenv("BIGDL_KERNELS", "pallas")
+                                              count_include_pad, refs):
     dims, strides, pads, declared = _geom(shape, k, s, p, ceil)
     x = _x(shape, seed=10)
     xt = torch.from_numpy(x).requires_grad_()
     y = pool.avg_pool(xt, dims, strides, pads, declared, count_include_pad)
     gy = _x(tuple(y.shape), seed=11)
-    want = np.asarray(_pool_vjp(x, gy, dims, strides, pads, declared,
-                                count_include_pad))
+    want = np.asarray(refs["pool_bwd", (shape, k, s, p, ceil),
+                           count_include_pad])
     (got,) = torch.autograd.grad(y, xt, torch.from_numpy(gy))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
 
 
-def test_avg_pool_backward_bf16_matches_pallas_vjp(monkeypatch):
-    monkeypatch.setenv("BIGDL_KERNELS", "pallas")
+def test_avg_pool_backward_bf16_matches_pallas_vjp(refs):
     shape = (2, 4, 14, 14)
     dims, strides, pads, declared = _geom(shape, 5, 3, 0, True)
     xt = torch.from_numpy(_x(shape, seed=12)).bfloat16().requires_grad_()
     y = pool.avg_pool(xt, dims, strides, pads, declared, True)
     gy = _x(tuple(y.shape), seed=13)
-    want = _pool_vjp(xt.detach().float().numpy(), gy, dims, strides, pads,
-                     declared, True, jnp.bfloat16)
+    want = refs["pool_bwd_bf16"]
     (got,) = torch.autograd.grad(y, xt, torch.from_numpy(gy).bfloat16())
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(),
@@ -295,7 +337,10 @@ def test_cpu_backward_never_touches_the_kernels(monkeypatch):
                                  "flash_fwd": 0, "flash_dq": 0,
                                  "flash_dkv": 0, "maxpool_fwd": 0,
                                  "maxpool_tie_bwd": 0,
-                                 "maxpool_argmax_bwd": 0}
+                                 "maxpool_argmax_bwd": 0,
+                                 "within_channel_lrn_fwd": 0,
+                                 "within_channel_lrn_bwd": 0,
+                                 "smooth2d": 0}
 
 
 def _forbidden_build(*args, **kwargs):
