@@ -15,13 +15,17 @@ Shapes are [batch, heads, seq, head_dim] throughout, as in JAX.
 
 A row with no key to attend (``l == 0``) gets ``out = 0`` and
 ``lse = -1e30``.  The flash kernels (``csrc/flash_fwd.cu``,
-``flash_dq.cu``, ``flash_dkv.cu``) take f32 and bf16 and compute in
-f32; they pick their own tiles, mask the ragged last tile themselves and
-take head dims up to 128.  A CUDA tensor launches them or raises; a CPU
-tensor runs the plain versions.  The TPU-only pieces are not carried
-over: the Pallas block sizes and their environment overrides, the
-Mosaic-tiling dense fallback, and the ``BIGDL_KERNELS`` and
-``BIGDL_FLASH_MIN_SEQ`` switches.
+``flash_dq.cu``, ``flash_dkv.cu``) take f32 and bf16, chosen by dtype
+inside each library: in bf16 the forward and dkv run on the tensor
+cores (``mma.sync`` bf16 products with f32 accumulators; ``p`` and
+``ds`` are rounded to bf16 before their second product, a relative
+error of at most 2^-9 a term), while dq, and all three in f32, compute
+in f32 on the CUDA cores.  They pick their own tiles, mask the ragged
+last tile themselves and take head dims up to 128.  A CUDA tensor
+launches them or raises; a CPU tensor runs the plain versions.  The
+TPU-only pieces are not carried over: the Pallas block sizes and their
+environment overrides, the Mosaic-tiling dense fallback, and the
+``BIGDL_KERNELS`` and ``BIGDL_FLASH_MIN_SEQ`` switches.
 """
 
 from __future__ import annotations
@@ -38,7 +42,8 @@ __all__ = ["dot_product_attention", "flash_attention", "flash_min_seq",
            "KERNEL_DTYPES", "MAX_HEAD_DIM"]
 
 NEG_INF = -1e30
-#: dtypes the kernels read and write (their arithmetic is f32)
+#: dtypes the kernels read and write: f32 computes in f32 on the CUDA
+#: cores; bf16 on the tensor cores (forward, dkv) or in f32 (dq)
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the largest head dim the kernels take
 MAX_HEAD_DIM = 128
@@ -237,8 +242,11 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
 def flash_fwd(q, k, v, scale: float, causal: bool
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out, lse)`` of flash attention.  A CUDA tensor launches the
-    kernel (``csrc/flash_fwd.cu``) or raises; a CPU tensor runs
-    :func:`flash_fwd_plain`."""
+    kernel (``csrc/flash_fwd.cu``: bf16 always on the tensor-core
+    kernel, f32 on the CUDA-core one, for every head dim 1-128) or
+    raises; a CPU tensor runs :func:`flash_fwd_plain`.  ``launches``
+    counts every kernel launch, so a bf16 path's count is the
+    tensor-core kernel's."""
     if not _route(q, "flash-attention forward"):
         return flash_fwd_plain(q, k, v, scale, causal)
     from bigdl_tpu_torch.ops import _build
@@ -291,8 +299,11 @@ flash_dq.launches = 0
 def flash_dkv(q, k, v, do, lse, delta, scale: float, causal: bool
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dk, dv)`` of flash attention.  A CUDA tensor launches the
-    kernel (``csrc/flash_dkv.cu``) or raises; a CPU tensor runs the
-    plain version."""
+    kernel (``csrc/flash_dkv.cu``: bf16 always on the tensor-core
+    kernel, f32 on the CUDA-core one, for every head dim 1-128) or
+    raises; a CPU tensor runs the plain version.  ``launches`` counts
+    every kernel launch, so a bf16 path's count is the tensor-core
+    kernel's."""
     if not _route(q, "flash-attention dkv"):
         return _dkv_plain(q, k, v, lse, do, delta, scale, causal)
     from bigdl_tpu_torch.ops import _build

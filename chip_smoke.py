@@ -106,7 +106,11 @@ their plain versions in f32 and bf16 at the training shape
 [32, 8, 512, 64] causal (checked and timed) and at edge shapes (checked
 only): non-causal, sq 128 / sk 384 and sq 384 / sk 128 causal (rows
 that see no key: ``out`` and ``dq`` 0), ragged S 500, head dims 32 and
-128.  Their f32 tolerance is rtol 1e-5 with atol 1e-6 times the largest
+128, and 40 and 20 (padded inside the bf16 tensor-core kernels: 16-byte
+copies, then element loads).  In bf16 the forward and dkv kernels run on
+the tensor cores (mma.sync, their rows say ``"design": "mma.sync
+bf16"``), every other flash launch on the CUDA cores (``"fma f32"``).
+Their f32 tolerance is rtol 1e-5 with atol 1e-6 times the largest
 magnitude of the output: the kernels sum up to 512 products in another
 order than the plain version's matmuls.
 
@@ -121,9 +125,10 @@ the 50 MB L2 cache, timed with CUDA events (the backward of
 ``F.scaled_dot_product_attention`` forward and backward are timed with
 events around plain calls).  Bounds use the H100 SXM
 data-sheet peaks: 3.35 TB/s of HBM and 67 TFLOP/s of f32 outside the
-tensor cores (every kernel computes in f32), except the flash-attention
-rows in bf16, whose operations are held to the tensor cores' 989 TFLOP/s
-so that a redesign on them is judged by what the card can do.
+tensor cores (the kernels that compute in f32), except the
+flash-attention rows in bf16, whose operations are held to the tensor
+cores' 989 TFLOP/s: the bf16 forward and dkv run there, and the bf16 dq
+is judged by what the card can do.
 """
 
 from __future__ import annotations
@@ -809,7 +814,13 @@ FLASH_TRAIN = (LM_BATCH, 8, 512, 512, 64, True)
 #: edge shapes, checked only
 FLASH_EDGES = ((2, 8, 512, 512, 64, False), (2, 8, 128, 384, 64, True),
                (2, 8, 384, 128, 64, True), (2, 8, 500, 500, 64, True),
-               (2, 8, 512, 512, 32, True), (2, 8, 512, 512, 128, True))
+               (2, 8, 512, 512, 32, True), (2, 8, 512, 512, 128, True),
+               # head dims padded in the bf16 kernels: a multiple of 8
+               # (16-byte copies) and not (element loads)
+               (2, 8, 512, 512, 40, True), (2, 8, 256, 256, 20, True))
+#: the design behind each flash kernel, by dtype
+FLASH_DESIGN = {("flash_fwd", "bfloat16"): "mma.sync bf16",
+                ("flash_dkv", "bfloat16"): "mma.sync bf16"}
 
 
 def _flash_tol(torch, want, dtype):
@@ -932,6 +943,7 @@ def _flash_rows(torch, dtype, inputs, errs):
         row = {"name": name, "path": "train_lm", "site": "attention",
                "shape": list(FLASH_TRAIN[:5]), "causal": causal,
                "dtype": str(dtype)[6:],
+               "design": FLASH_DESIGN.get((name, str(dtype)[6:]), "fma f32"),
                "max_abs_err": max(errs[o] for o in outs),
                "errors": {o: errs[o] for o in outs},
                "tolerance": "2e-2" if dtype == torch.bfloat16
