@@ -48,6 +48,33 @@ __device__ __forceinline__ unsigned div(unsigned n, FastDiv f) {
   return (__umulhi(n, f.magic) + n) >> f.shift;
 }
 
+// cp.async (sm_80 and up): copies from global to shared memory that the
+// issuing thread waits for by group.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes, both addresses 16-byte aligned; with valid false the source
+// size is 0 and the 16 bytes are zero-filled (src must still be a mapped
+// address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 }  // namespace bigdl
 
 // Every library exports its own copy, so a wrapper can name the error

@@ -2,11 +2,11 @@
 // flash_dq.cu, flash_dkv.cu): the tile geometry, the causal liveness test,
 // and two sets of building blocks.
 //
-// The CUDA-core set (every dq launch, and the f32 forward and dkv): the
-// kernels run 256 threads as a 16 x 16 grid (tx = tid % 16 fastest).  A
-// 64 x 64 score tile gives each thread the 4 x 4 entries at rows ty + 16 i
-// and columns tx + 16 j (i, j < 4); an accumulator over the head dim gives
-// it rows ty + 16 i and columns tx + 16 j (j < NJ = ceil(D / 16)).  A row's
+// The CUDA-core set (the f32 kernels): the kernels run 256 threads as a
+// 16 x 16 grid (tx = tid % 16 fastest).  A 64 x 64 score tile gives each
+// thread the 4 x 4 entries at rows ty + 16 i and columns tx + 16 j
+// (i, j < 4); an accumulator over the head dim gives it rows ty + 16 i
+// and columns tx + 16 j (j < NJ = ceil(D / 16)).  A row's
 // 16 owners are the 16 lanes of one half-warp, so a row reduction is four
 // xor-shuffles.  A shared tile row holds the head dim rounded up to 4
 // (zeros past d) plus 4 floats of padding, converted to f32, so the loops
@@ -14,8 +14,8 @@
 // of a quarter warp that read 8 rows at one column hit 32 banks.  They
 // compute in f32 with FMAs.
 //
-// The tensor-core set (namespace tc: the bf16 forward and dkv): 128
-// threads, 4 warps of 16 tile rows each, products by
+// The tensor-core set (namespace tc: the bf16 kernels): 128 threads, 4
+// warps of 16 tile rows each, products by
 // mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 with f32 accumulators,
 // operands from bf16 tiles in shared memory by ldmatrix (.trans where the
 // operand runs along the sequence), streamed tiles copied by cp.async into
@@ -40,17 +40,9 @@ constexpr float kNegInf = -1e30f;     // the Pallas kernels' _NEG_INF
 __host__ __device__ constexpr int d4(int d) { return (d + 3) / 4 * 4; }
 __host__ __device__ constexpr int ld(int d) { return d4(d) + 4; }
 
-// Four consecutive elements from global memory as f32: one 16-byte load
-// of f32, one 8-byte load of bf16.
+// Four consecutive f32 elements from global memory: one 16-byte load.
 __device__ __forceinline__ float4 load4_global(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4_global(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
 // Copy rows [row0, row0 + kTile) of a contiguous [rows, d] matrix into a
@@ -187,38 +179,19 @@ __host__ __device__ constexpr int padded_d(int d) {
   return d <= 32 ? 32 : d <= 64 ? 64 : 128;
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
+// cp.async: the 16-byte copies, groups and waits of common.cuh, and 4-byte
+// copies zero-filled the same way.
+using ::bigdl::cp_async16;
+using ::bigdl::cp_commit;
+using ::bigdl::cp_wait;
+using ::bigdl::smem_addr;
 
-// 16 bytes from global to shared memory, asynchronously; with valid false
-// the source size is 0 and the 16 bytes are zero-filled (src must still
-// be a mapped address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-// 4 bytes, zero-filled the same way.
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(valid ? 4 : 0)
                : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Four 8 x 8 b16 matrices from shared memory; lane l gives the address of

@@ -16,10 +16,11 @@ Shapes are [batch, heads, seq, head_dim] throughout, as in JAX.
 A row with no key to attend (``l == 0``) gets ``out = 0`` and
 ``lse = -1e30``.  The flash kernels (``csrc/flash_fwd.cu``,
 ``flash_dq.cu``, ``flash_dkv.cu``) take f32 and bf16, chosen by dtype
-inside each library: in bf16 the forward and dkv run on the tensor
-cores (``mma.sync`` bf16 products with f32 accumulators; ``p`` and
-``ds`` are rounded to bf16 before their second product, a relative
-error of at most 2^-9 a term), while dq, and all three in f32, compute
+inside each library: in bf16 all three run on the tensor cores
+(``mma.sync`` bf16 products with f32 accumulators; ``p`` and ``ds`` are
+rounded to bf16 before their second product, ``p v``, ``ds k``,
+``ds^T q`` and ``p^T do``, where the Pallas kernels keep them in f32: a
+relative error of at most 2^-9 a term), while in f32 all three compute
 in f32 on the CUDA cores.  They pick their own tiles, mask the ragged
 last tile themselves and take head dims up to 128.  A CUDA tensor
 launches them or raises; a CPU tensor runs the plain versions.  The
@@ -43,7 +44,7 @@ __all__ = ["dot_product_attention", "flash_attention", "flash_min_seq",
 
 NEG_INF = -1e30
 #: dtypes the kernels read and write: f32 computes in f32 on the CUDA
-#: cores; bf16 on the tensor cores (forward, dkv) or in f32 (dq)
+#: cores, bf16 on the tensor cores
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the largest head dim the kernels take
 MAX_HEAD_DIM = 128
@@ -272,8 +273,10 @@ flash_fwd.launches = 0
 def flash_dq(q, k, v, do, lse, delta, scale: float, causal: bool
              ) -> torch.Tensor:
     """dq of flash attention.  A CUDA tensor launches the kernel
-    (``csrc/flash_dq.cu``) or raises; a CPU tensor runs the plain
-    version."""
+    (``csrc/flash_dq.cu``: bf16 always on the tensor-core kernel, f32 on
+    the CUDA-core one, for every head dim 1-128) or raises; a CPU tensor
+    runs the plain version.  ``launches`` counts every kernel launch, so
+    a bf16 path's count is the tensor-core kernel's."""
     if not _route(q, "flash-attention dq"):
         return _dq_plain(q, k, v, lse, do, delta, scale, causal)
     from bigdl_tpu_torch.ops import _build

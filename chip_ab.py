@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Times the bf16 flash-attention kernels and the ``transformer_lm``
-train step of several checkouts on one NVIDIA GPU, each in a process of
-its own, in the order given (e.g. parent, change, change, parent):
+"""Times the bf16 flash-attention kernels, the average-pool forward and
+the ``transformer_lm`` train step of several checkouts on one NVIDIA
+GPU, each in a process of its own, in the order given (e.g. parent,
+change, change, parent):
 
     python3 chip_ab.py OLD_ROOT NEW_ROOT NEW_ROOT OLD_ROOT
 
@@ -10,7 +11,11 @@ root (so each builds its own kernels there), holds the three flash
 kernels against their plain versions at the training shape
 [32, 8, 512, 64] causal in bf16 and times them with ``chip_smoke``'s
 ``_flash_rows`` (a CUDA graph over copies of the inputs that exceed the
-L2 cache), then runs ``make_step("transformer_lm")`` (batch 32, bf16)
+L2 cache), holds the average-pool forward bit for bit against its plain
+version at the Inception-v1 head's training shape [256, 1024, 7, 7] in
+bf16 and its serving shape [8, 1024, 7, 7] in f32 (``chip_smoke``'s
+``_pool_cases``) and times it the same way beside ``F.avg_pool2d``,
+then runs ``make_step("transformer_lm")`` (batch 32, bf16)
 for 3 warm-up steps and five windows of 10 timed steps, each window
 synchronised at its ends only: finite losses that fall over the first
 13 steps, 6/6/6 flash launches per step, and the median window's ms a
@@ -30,6 +35,32 @@ import sys
 from statistics import fmean
 
 STEPS = {"flash_fwd": 6, "flash_dq": 6, "flash_dkv": 6}
+
+
+def avg_pool_rows(torch, c) -> dict:
+    """The average-pool forward at the train head (bf16) and the serve
+    head (f32): bit-equal to its plain version, then its device ms beside
+    ``F.avg_pool2d``'s and its byte bound."""
+    gen = torch.Generator(device="cuda").manual_seed(c.SEED)
+    out = {}
+    for path, batch, dtype in (("train", c.TRAIN_BATCH, torch.bfloat16),
+                               ("serve", c.BATCH, torch.float32)):
+        (case,) = c._pool_cases(torch, path, batch)
+        args = case["make"](gen, case["shape"], dtype)
+        c.bit_equal(torch, case["kernel"](*args), case["plain"](*args),
+                    f"avg_pool_fwd {path}")
+        copies = c.rotating_copies(args, torch)
+        launches = max(len(copies), 20)
+        nbytes, _ = case["bound"](*args)
+        out[path] = {"shape": list(case["shape"]), "dtype": str(dtype)[6:],
+                     "ms": c.graph_ms(torch, case["kernel"], copies,
+                                      launches),
+                     "library_ms": c.graph_ms(torch, case["library"], copies,
+                                              launches),
+                     "bound_ms": nbytes / c.HBM_BYTES_PER_S * 1e3}
+        del copies, args
+        torch.cuda.empty_cache()
+    return out
 
 
 def one(root: str) -> dict:
@@ -53,6 +84,7 @@ def one(root: str) -> dict:
     rows = c._flash_rows(torch, torch.bfloat16, inputs, errs)
     del inputs
     torch.cuda.empty_cache()
+    avg_pool = avg_pool_rows(torch, c)
 
     warmup, iters, windows = 3, 10, 5
     step, x, y = make_step("transformer_lm")
@@ -74,6 +106,7 @@ def one(root: str) -> dict:
             "kernels": {r["name"]: {k: r.get(k) for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                 "max_abs_err", "design")} for r in rows},
+            "avg_pool_fwd": avg_pool,
             "lm_step_ms": median,
             "lm_records_per_s": c.LM_BATCH / median * 1e3,
             "lm_window_step_ms": step_ms,
@@ -116,7 +149,10 @@ def main(argv) -> int:
             "processes": len(mine),
             "lm_step_ms": fmean(r["lm_step_ms"] for r in mine),
             **{f"{name}_ms": fmean(r["kernels"][name]["ms"] for r in mine)
-               for name in STEPS}}
+               for name in STEPS},
+            **{f"avg_pool_fwd_{path}_ms": fmean(
+                r["avg_pool_fwd"][path]["ms"] for r in mine)
+               for path in ("train", "serve")}}
     print(card, flush=True)
     print(json.dumps({"summary": summary}), flush=True)
     return 0

@@ -93,6 +93,15 @@ anisotropic windows, stride 1, global 7x7, the bottom-row residue
 shortfall) with tie-heavy inputs, all -inf windows, NaN, -0.0 beside
 +0.0 and an inf gradient (checked only).
 
+It holds the average-pool forward to its plain version bit for bit too,
+in f32 and bf16: at the head shapes (checked and timed) and at edge
+geometries (checked only, normal and special inputs): the aux heads' 5x5
+s3 ceil on [8, 512, 14, 14], the 3x3 s1 p1 branch pool with and without
+``count_include_pad``, the 8x8 head, a plane count that is no multiple
+of the staged kernel's plane group, an input that starts off a 16-byte
+boundary (a contiguous slice of a larger buffer), and a plane too large
+to stage, which takes the one-thread-per-output kernel.
+
 The kernels phase also holds the within-channel LRN forward and
 backward at the norm phase's two sites, and the smoothing kernel at its
 three call shapes (the [1, 224, 224] edge-coverage mass, the mean map
@@ -107,9 +116,9 @@ their plain versions in f32 and bf16 at the training shape
 only): non-causal, sq 128 / sk 384 and sq 384 / sk 128 causal (rows
 that see no key: ``out`` and ``dq`` 0), ragged S 500, head dims 32 and
 128, and 40 and 20 (padded inside the bf16 tensor-core kernels: 16-byte
-copies, then element loads).  In bf16 the forward and dkv kernels run on
-the tensor cores (mma.sync, their rows say ``"design": "mma.sync
-bf16"``), every other flash launch on the CUDA cores (``"fma f32"``).
+copies, then element loads).  In bf16 all three kernels run on the
+tensor cores (mma.sync, their rows say ``"design": "mma.sync bf16"``),
+in f32 on the CUDA cores (``"fma f32"``).
 Their f32 tolerance is rtol 1e-5 with atol 1e-6 times the largest
 magnitude of the output: the kernels sum up to 512 products in another
 order than the plain version's matmuls.
@@ -127,8 +136,7 @@ events around plain calls).  Bounds use the H100 SXM
 data-sheet peaks: 3.35 TB/s of HBM and 67 TFLOP/s of f32 outside the
 tensor cores (the kernels that compute in f32), except the
 flash-attention rows in bf16, whose operations are held to the tensor
-cores' 989 TFLOP/s: the bf16 forward and dkv run there, and the bf16 dq
-is judged by what the card can do.
+cores' 989 TFLOP/s, where the three bf16 flash kernels run.
 """
 
 from __future__ import annotations
@@ -381,7 +389,7 @@ def _pool_cases(torch, path, batch):
 
     return [dict(name="avg_pool_fwd", path=path, site="head 7x7 s1",
                  shape=shape, make=make, kernel=kernel, plain=plain,
-                 library=library, bound=bound)]
+                 library=library, bound=bound, exact=True)]
 
 
 def _pool_bwd_cases(torch):
@@ -805,6 +813,62 @@ def phase_maxpool_edges(torch):
           "inputs": "normal, tie-heavy, special (-inf block, NaN, -0.0)"})
 
 
+#: average-pool edge geometries (name, shape, SpatialAveragePooling
+#: arguments, slice offset in elements), checked only
+AVG_POOL_EDGES = (
+    ("aux head 5x5 s3 ceil", (8, 512, 14, 14),  # inception.py:115
+     dict(kw=5, kh=5, dw=3, dh=3, ceil_mode=True), 0),
+    ("3x3 s1 p1 branch pool", (8, 256, 28, 28),  # inception.py:167
+     dict(kw=3, kh=3, dw=1, dh=1, pad_w=1, pad_h=1, ceil_mode=True), 0),
+    ("3x3 s1 p1, count_include_pad off", (8, 256, 28, 28),
+     dict(kw=3, kh=3, dw=1, dh=1, pad_w=1, pad_h=1, ceil_mode=True,
+          count_include_pad=False), 0),
+    ("8x8 head", (8, 2048, 8, 8), dict(kw=8, kh=8, dw=1, dh=1), 0),  # resnet.py:130
+    # 4099 planes: no multiple of the staged kernel's plane group
+    ("7x7 head, 4099 planes", (1, 4099, 7, 7), dict(kw=7, kh=7, dw=1, dh=1), 0),
+    # starts 3 elements past the buffer's 16-byte aligned start
+    ("7x7 head, unaligned", (8, 1024, 7, 7), dict(kw=7, kh=7, dw=1, dh=1), 3),
+    # a plane too large to stage: the one-thread-per-output kernel
+    ("3x3 s1 p1 on 112x112", (2, 8, 112, 112),
+     dict(kw=3, kh=3, dw=1, dh=1, pad_w=1, pad_h=1), 0),
+)
+
+
+def phase_avg_pool_edges(torch):
+    """The average-pool forward bit-equal to its plain version at the
+    edge geometries, in f32 and bf16, on normal and special inputs
+    (checked only)."""
+    from bigdl_tpu_torch.nn.layers.pooling import SpatialAveragePooling
+    from bigdl_tpu_torch.ops import pool
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    checks = 0
+    for name, shape, layer_args, offset in AVG_POOL_EDGES:
+        layer = SpatialAveragePooling(**layer_args)
+        dims, strides, pads, declared = layer._window(
+            torch.empty(shape, device="meta"))
+        cip = layer.count_include_pad
+        inv = pool._np_inv_counts(shape, dims, strides, pads, declared, cip)
+        inv_dev = torch.as_tensor(inv, dtype=torch.float32, device="cuda")
+        inputs = _edge_inputs(torch, gen, shape)
+        for kind in ("normal", "special"):
+            for dtype in (torch.float32, torch.bfloat16):
+                buf = torch.empty(offset + math.prod(shape), dtype=dtype,
+                                  device="cuda")
+                x = buf[offset:].view(shape)
+                x.copy_(inputs[kind])
+                bit_equal(torch, pool.avg_pool_forward(
+                    x, dims, strides, pads, declared, cip),
+                    pool.avg_pool_plain(x, dims, strides, pads, inv_dev),
+                    f"avg_pool_fwd {name} {shape} {kind} {str(dtype)[6:]}")
+                checks += 1
+    torch.cuda.synchronize()
+    emit({"phase": "kernels", "name": "avg_pool_fwd", "checked_only": True,
+          "geometries": [name for name, *_ in AVG_POOL_EDGES],
+          "checks": checks, "tolerance": "bit-equal",
+          "inputs": "normal, special (-inf block, NaN, -0.0)"})
+
+
 # ---------------------------------------------------------------------------
 # flash attention
 # ---------------------------------------------------------------------------
@@ -820,6 +884,7 @@ FLASH_EDGES = ((2, 8, 512, 512, 64, False), (2, 8, 128, 384, 64, True),
                (2, 8, 512, 512, 40, True), (2, 8, 256, 256, 20, True))
 #: the design behind each flash kernel, by dtype
 FLASH_DESIGN = {("flash_fwd", "bfloat16"): "mma.sync bf16",
+                ("flash_dq", "bfloat16"): "mma.sync bf16",
                 ("flash_dkv", "bfloat16"): "mma.sync bf16"}
 
 
@@ -1770,6 +1835,7 @@ def main() -> int:
     card = phase_build()
     rows = phase_kernels(torch) + phase_flash_kernels(torch)
     phase_maxpool_edges(torch)
+    phase_avg_pool_edges(torch)
     serve_launches = phase_serve(torch, card)
     default = phase_train(torch, card, root)
     tie_launches, argmax_launches = phase_train_pool(torch, card, root,
