@@ -33,7 +33,8 @@
 // first wait, and element loads for the partial 16-byte chunks at its
 // two ends (a span need not start or end on 16 bytes).  The span keeps
 // its offset from 16 bytes in shared memory, so every full chunk lands
-// aligned.  Then its threads walk the group's outputs, consecutive
+// aligned (bigdl::stage_span of pool_stage.cuh, which the max-pool
+// backwards share).  Then its threads walk the group's outputs, consecutive
 // threads on consecutive outputs (coalesced stores), each summing its
 // window from shared memory.  The group is sized so that a launch has
 // about kFillBlocks CTAs where the planes allow it (the serve head: 8
@@ -43,7 +44,7 @@
 // consecutive threads on consecutive outputs of a plane, summing in f32
 // in registers from global memory.  No atomics in either.
 
-#include "common.cuh"
+#include "pool_stage.cuh"
 
 namespace {
 
@@ -98,7 +99,6 @@ avg_pool_fwd_staged(const T* __restrict__ x, const float* __restrict__ inv,
                     T* __restrict__ y, int nc, int group, int h, int w,
                     int oh, int ow, int kh, int kw, int sh, int sw, int ph,
                     int pw) {
-  constexpr int kPer = 16 / static_cast<int>(sizeof(T));  // elements a chunk
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* tile = reinterpret_cast<T*>(smem_raw);
   const int hw = h * w;
@@ -107,18 +107,9 @@ avg_pool_fwd_staged(const T* __restrict__ x, const float* __restrict__ inv,
   const int n = planes * hw;  // elements of the span
   const T* src = x + p0 * hw;
   // the span starts `lead` elements past a 16-byte boundary and sits at
-  // tile[lead ..]: chunk c holds span elements c * kPer - lead ..
-  const int lead = static_cast<int>(reinterpret_cast<unsigned long long>(src) % 16) /
-                   static_cast<int>(sizeof(T));
-  const int chunks = (lead + n + kPer - 1) / kPer;
-  for (int c = threadIdx.x; c < chunks; c += kStageThreads) {
-    const int e0 = c * kPer - lead;
-    if (e0 >= 0 && e0 + kPer <= n) {
-      bigdl::cp_async16(tile + c * kPer, src + e0);
-    } else {
-      for (int e = max(e0, 0); e < min(e0 + kPer, n); ++e) tile[lead + e] = src[e];
-    }
-  }
+  // tile[lead ..]
+  const int lead = bigdl::span_lead(src);
+  bigdl::stage_span(tile, src, n, lead);
   bigdl::cp_commit();
   bigdl::cp_wait<0>();
   __syncthreads();

@@ -38,7 +38,7 @@ BUILD_DIR = _PKG / "build"
 SOURCES = ("lrn_fwd", "lrn_bwd", "avg_pool_fwd", "avg_pool_bwd", "flash_fwd",
            "flash_dq", "flash_dkv", "maxpool_fwd", "maxpool_tie_bwd",
            "maxpool_argmax_bwd", "wcl_fwd", "wcl_bwd", "smooth2d")
-_HEADERS = ("common.cuh", "flash.cuh", "window.cuh")
+_HEADERS = ("common.cuh", "flash.cuh", "pool_stage.cuh", "window.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -57,7 +57,7 @@ _SIGNATURES = {
     "flash_dq": ("bigdl_flash_dq", [_P] * 7 + [_I] * 4 + [_F, _I, _I, _P]),
     "flash_dkv": ("bigdl_flash_dkv", [_P] * 8 + [_I] * 4 + [_F, _I, _I, _P]),
     "maxpool_fwd": ("bigdl_maxpool_fwd", [_P] * 3 + [_I] * 12 + [_P]),
-    "maxpool_tie_bwd": ("bigdl_maxpool_tie_bwd", [_P] * 5 + [_I] * 12 + [_P]),
+    "maxpool_tie_bwd": ("bigdl_maxpool_tie_bwd", [_P] * 4 + [_I] * 12 + [_P]),
     "maxpool_argmax_bwd": ("bigdl_maxpool_argmax_bwd",
                            [_P] * 3 + [_I] * 12 + [_P]),
     "wcl_fwd": ("bigdl_wcl_fwd", [_P] * 3 + [_I] * 5 + [_F] * 2 + [_I, _P]),

@@ -467,9 +467,14 @@ def maxpool_tie_split_backward(x: torch.Tensor, y: torch.Tensor,
                                pads: Pads) -> torch.Tensor:
     """dx of tie-split max pooling from the saved ``x`` and ``y``.  A
     CUDA tensor that passes the structural gate launches the kernel
-    (``csrc/maxpool_tie_bwd.cu``: a count-and-weight pass over the
-    outputs, then a gather over the inputs) or raises; a CPU tensor, or
-    another geometry, runs :func:`maxpool_tie_split_backward_plain`."""
+    (``csrc/maxpool_tie_bwd.cu``: one launch whose CTAs stage a group of
+    whole planes, or a band of rows of one plane, of ``x``, ``y`` and
+    ``gy`` in shared memory, weight the outputs there, gather each
+    input's dx there and write it back with 16-byte stores; it allocates
+    nothing beyond ``dx``) or raises, also for rows too wide for a
+    one-row band to fit a CTA's shared memory (several thousand
+    elements); a CPU tensor, or another geometry, runs
+    :func:`maxpool_tie_split_backward_plain`."""
     if not _max_plane_supported(x, dims, strides) or x.device.type == "cpu":
         return maxpool_tie_split_backward_plain(x, y, gy, dims, strides, pads)
     if x.device.type != "cuda":
@@ -495,15 +500,14 @@ def maxpool_tie_split_backward(x: torch.Tensor, y: torch.Tensor,
     dx = torch.empty_like(x)
     if dx.numel() == 0:
         return dx
-    wgt = torch.empty(out, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.bigdl_maxpool_tie_bwd(
             ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()),
-            ctypes.c_void_p(gy.data_ptr()), ctypes.c_void_p(wgt.data_ptr()),
-            ctypes.c_void_p(dx.data_ptr()), n * c, h, w, oh, ow, dims[2],
-            dims[3], strides[2], strides[3], pads[2][0], pads[3][0],
-            MAX_KERNEL_DTYPES[x.dtype], ctypes.c_void_p(stream))
+            ctypes.c_void_p(gy.data_ptr()), ctypes.c_void_p(dx.data_ptr()),
+            n * c, h, w, oh, ow, dims[2], dims[3], strides[2], strides[3],
+            pads[2][0], pads[3][0], MAX_KERNEL_DTYPES[x.dtype],
+            ctypes.c_void_p(stream))
     _build.check(lib, err, "tie-split max-pool backward")
     maxpool_tie_split_backward.launches += 1
     return dx

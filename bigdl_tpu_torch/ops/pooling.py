@@ -98,7 +98,11 @@ def maxpool_argmax_backward(gy: torch.Tensor, idx: torch.Tensor, x_shape,
                             dims: Sequence[int], strides: Sequence[int],
                             pads: Pads) -> torch.Tensor:
     """dx of argmax-index max pooling.  A CUDA tensor launches the
-    kernel (``csrc/maxpool_argmax_bwd.cu``) or raises; a CPU tensor runs
+    kernel (``csrc/maxpool_argmax_bwd.cu``: one launch whose CTAs stage
+    a group of whole planes, or a band of rows of one plane, of ``gy``
+    and the index in shared memory, gather dx into a shared tile and
+    write it back with 16-byte stores) or raises, also for rows too wide
+    for a one-row band to fit a CTA's shared memory; a CPU tensor runs
     :func:`maxpool_argmax_backward_plain`."""
     if gy.device.type == "cpu":
         return maxpool_argmax_backward_plain(gy, idx, x_shape, dims, strides,

@@ -23,6 +23,22 @@ step (one slow window, a hiccup of the host, does not move it).  One
 JSON line per process, then the card's name and power limit, then a
 JSON summary by root (means over that root's processes).  Exits
 non-zero without a GPU or when a process fails.
+
+    python3 chip_ab.py --maxpool OLD_ROOT NEW_ROOT NEW_ROOT OLD_ROOT
+
+times the max pools instead, at all 13 of Inception-v1's max-pool sites
+at batch 256 (geometries from ``SpatialMaxPooling(3, 3, s, s, p,
+p).ceil()``, as ``chip_smoke._maxpool_geometry`` builds them): each
+process runs ``chip_smoke._maxpool_cases`` over the 13 sites, holding
+the forward without the index (f32, bf16) and with it (bf16, f16), the
+tie-split backward (f32, bf16) and the argmax backward (bf16, f16) bit
+for bit against their plain versions and timing each as ``chip_smoke``
+does, with the sum of
+each over the 13 sites beside its summed bound; then it times the
+Inception-v1 step (bf16, batch 256, ``cli perf``'s model, seeds and
+batch) with ``split_ties()`` and with the argmax index on every max
+pool: 3 warm-up steps and five windows of 10 steps, finite losses that
+fall, 13 + 13 max-pool launches a step, the median window's ms.
 """
 
 from __future__ import annotations
@@ -35,6 +51,16 @@ import sys
 from statistics import fmean
 
 STEPS = {"flash_fwd": 6, "flash_dq": 6, "flash_dkv": 6}
+#: Inception-v1's 13 max pools at batch 256: (site, channels, extent,
+#: stride, pad), in the order of the forward
+MAXPOOL_SITES = (
+    ("pool1", 64, 112, 2, 0), ("pool2", 192, 56, 2, 0),
+    ("inception_3a pool", 192, 28, 1, 1), ("inception_3b pool", 256, 28, 1, 1),
+    ("pool3", 480, 28, 2, 0), ("inception_4a pool", 480, 14, 1, 1),
+    ("inception_4b pool", 512, 14, 1, 1), ("inception_4c pool", 512, 14, 1, 1),
+    ("inception_4d pool", 512, 14, 1, 1), ("inception_4e pool", 528, 14, 1, 1),
+    ("pool4", 832, 14, 2, 0), ("inception_5a pool", 832, 7, 1, 1),
+    ("inception_5b pool", 832, 7, 1, 1))
 
 
 def avg_pool_rows(torch, c) -> dict:
@@ -63,21 +89,116 @@ def avg_pool_rows(torch, c) -> dict:
     return out
 
 
-def one(root: str) -> dict:
-    """The measurements of one checkout, in this process."""
+def maxpool_rows(torch, c) -> dict:
+    """The max-pool kernels at the 13 sites: each bit-equal to its plain
+    version, its device ms and bound, and each kernel's sums over the
+    sites."""
+    c.MAXPOOL_SITES = MAXPOOL_SITES
+    gen = torch.Generator(device="cuda").manual_seed(c.SEED)
+    rows, sums = [], {}
+    for case in c._maxpool_cases(torch):
+        for dtype in case["dtypes"]:
+            dt = str(dtype)[6:]
+            args = case["make"](gen, case["shape"], dtype)
+            c.bit_equal(torch, case["kernel"](*args), case["plain"](*args),
+                        f"{case['name']} {case['path']} {case['site']} {dt}")
+            copies = c.rotating_copies(args, torch)
+            nbytes, flops = case["bound"](*args)
+            bound = max(nbytes / c.HBM_BYTES_PER_S,
+                        flops / c.F32_FLOPS_PER_S) * 1e3
+            ms = c.graph_ms(torch, case["kernel"], copies,
+                            max(len(copies), 20))
+            rows.append({"name": case["name"], "path": case["path"],
+                         "site": case["site"], "dtype": dt, "ms": ms,
+                         "bound_ms": bound})
+            key = f"{case['name']} {case['path']} {dt}"
+            total = sums.setdefault(key, {"sites": 0, "ms": 0.0,
+                                          "bound_ms": 0.0})
+            total["sites"] += 1
+            total["ms"] += ms
+            total["bound_ms"] += bound
+            del copies, args
+            torch.cuda.empty_cache()
+    return {"rows": rows, "sums": sums}
+
+
+def pool_step(torch, c, mode: str, warmup=3, iters=10, windows=5) -> dict:
+    """The bf16 batch-256 Inception-v1 step with every max pool in
+    ``mode`` ("tie" or "argmax"): median ms of ``windows`` windows."""
+    import numpy as np
+
+    from bigdl_tpu_torch.models import registry
+    from bigdl_tpu_torch.nn.criterion import ClassNLLCriterion
+    from bigdl_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from bigdl_tpu_torch.optim import SGD
+    from bigdl_tpu_torch.parallel import TrainStep
+
+    model = registry.build_model("inception_v1", 1000,
+                                 generator=torch.Generator().manual_seed(0))
+    if len(c.set_pool_mode(model, mode)) != 13:
+        raise RuntimeError("Inception-v1 does not hold 13 max pools")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(c.TRAIN_BATCH, 3, 224, 224))
+                         .astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, 1000, c.TRAIN_BATCH)).cuda()
+    step = TrainStep(model, ClassNLLCriterion(),
+                     SGD(learning_rate=0.01, momentum=0.9),
+                     compute_dtype=torch.bfloat16, device="cuda")
+    reset_kernel_launches()
+    losses, wall = c._timed_steps(torch, step, x, y, warmup, iters)
+    step_ms = [wall / iters * 1e3]
+    for _ in range(windows - 1):
+        more, wall = c._timed_steps(torch, step, x, y, 0, iters)
+        losses += more
+        step_ms.append(wall / iters * 1e3)
+    if not all(math.isfinite(v) for v in losses) \
+            or not sum(losses[-3:]) < sum(losses[:3]):
+        raise RuntimeError(f"{mode} losses {losses}")
+    c.expect_launches(kernel_launches(), c.POOL_PER_STEP[mode],
+                      warmup + windows * iters, f"{mode} steps")
+    median = sorted(step_ms)[len(step_ms) // 2]
+    del step, model
+    torch.cuda.empty_cache()
+    return {"step_ms": median, "records_per_s": c.TRAIN_BATCH / median * 1e3,
+            "window_step_ms": step_ms, "losses": losses}
+
+
+def _checked_imports(root: str):
+    """torch and this root's ``chip_smoke``, with the port imported from
+    the same root."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import torch
 
     import chip_smoke as c
+    import bigdl_tpu_torch
+
+    for mod in (c, bigdl_tpu_torch):
+        if not os.path.abspath(mod.__file__).startswith(root + os.sep):
+            raise RuntimeError(f"{mod.__name__} came from {mod.__file__}, "
+                               f"not from {root}")
+    return root, torch, c
+
+
+def one_maxpool(root: str) -> dict:
+    """The max-pool measurements of one checkout, in this process."""
+    root, torch, c = _checked_imports(root)
+    from bigdl_tpu_torch.device import strict_f32
+
+    strict_f32()
+    kernels = maxpool_rows(torch, c)
+    return {"root": root, "maxpool": kernels,
+            "steps": {mode: pool_step(torch, c, mode)
+                      for mode in ("tie", "argmax")}}
+
+
+def one(root: str) -> dict:
+    """The measurements of one checkout, in this process."""
+    root, torch, c = _checked_imports(root)
     from bigdl_tpu_torch.bench_configs import make_step
     from bigdl_tpu_torch.device import strict_f32
     from bigdl_tpu_torch.ops import kernel_launches, reset_kernel_launches
 
-    for mod in (c, sys.modules["bigdl_tpu_torch"]):
-        if not os.path.abspath(mod.__file__).startswith(root + os.sep):
-            raise RuntimeError(f"{mod.__name__} came from {mod.__file__}, "
-                               f"not from {root}")
     strict_f32()
     gen = torch.Generator(device="cuda").manual_seed(c.SEED)
     inputs, errs = c._flash_check(torch, gen, c.FLASH_TRAIN, torch.bfloat16)
@@ -113,11 +234,35 @@ def one(root: str) -> dict:
             "lm_losses": losses}
 
 
+def _summary(mine, maxpool: bool) -> dict:
+    """Means over one root's processes."""
+    if maxpool:
+        sums = mine[0]["maxpool"]["sums"]
+        return {"processes": len(mine),
+                **{f"{mode}_step_ms": fmean(r["steps"][mode]["step_ms"]
+                                            for r in mine)
+                   for mode in ("tie", "argmax")},
+                **{f"{key} sum_ms": fmean(r["maxpool"]["sums"][key]["ms"]
+                                          for r in mine) for key in sums},
+                **{f"{key} sum_bound_ms": sums[key]["bound_ms"]
+                   for key in sums}}
+    return {"processes": len(mine),
+            "lm_step_ms": fmean(r["lm_step_ms"] for r in mine),
+            **{f"{name}_ms": fmean(r["kernels"][name]["ms"] for r in mine)
+               for name in STEPS},
+            **{f"avg_pool_fwd_{path}_ms": fmean(
+                r["avg_pool_fwd"][path]["ms"] for r in mine)
+               for path in ("train", "serve")}}
+
+
 def main(argv) -> int:
-    if len(argv) == 2 and argv[0] == "--one":
-        print(json.dumps(one(argv[1])), flush=True)
+    if len(argv) == 3 and argv[0] == "--one":
+        run = one_maxpool if argv[1] == "maxpool" else one
+        print(json.dumps(run(argv[2])), flush=True)
         return 0
-    if not argv:
+    maxpool = bool(argv) and argv[0] == "--maxpool"
+    roots = argv[1:] if maxpool else argv
+    if not roots:
         print(__doc__, file=sys.stderr)
         return 2
     import torch
@@ -126,9 +271,10 @@ def main(argv) -> int:
         print("chip_ab: CUDA is not available", file=sys.stderr)
         return 2
     runs = []
-    for root in argv:
+    for root in roots:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--one", root], capture_output=True, text=True)
+                               "--one", "maxpool" if maxpool else "default",
+                               root], capture_output=True, text=True)
         sys.stderr.write(proc.stderr[-4000:])
         if proc.returncode != 0:
             print(f"chip_ab: {root} exited {proc.returncode}", file=sys.stderr)
@@ -144,15 +290,8 @@ def main(argv) -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     summary = {}
     for root in dict.fromkeys(r["root"] for r in runs):
-        mine = [r for r in runs if r["root"] == root]
-        summary[root] = {
-            "processes": len(mine),
-            "lm_step_ms": fmean(r["lm_step_ms"] for r in mine),
-            **{f"{name}_ms": fmean(r["kernels"][name]["ms"] for r in mine)
-               for name in STEPS},
-            **{f"avg_pool_fwd_{path}_ms": fmean(
-                r["avg_pool_fwd"][path]["ms"] for r in mine)
-               for path in ("train", "serve")}}
+        summary[root] = _summary([r for r in runs if r["root"] == root],
+                                 maxpool)
     print(card, flush=True)
     print(json.dumps({"summary": summary}), flush=True)
     return 0

@@ -90,8 +90,11 @@ the training shapes of pool1, the inception_3b pool branch and pool4
 (post-ReLU inputs, so windows of zeros tie; checked and timed), and at
 the edge geometries of the JAX package's pooling tests (ceil overflow,
 anisotropic windows, stride 1, global 7x7, the bottom-row residue
-shortfall) with tie-heavy inputs, all -inf windows, NaN, -0.0 beside
-+0.0 and an inf gradient (checked only).
+shortfall) and at geometries that reach each tile of the backward
+kernels (groups of whole planes with a short last group, spans off 16
+bytes, row bands with halo rows at stride 1 and 2 and a 64-tap window),
+both backwards in f32, bf16 and f16, with tie-heavy inputs, all -inf
+windows, NaN, -0.0 beside +0.0 and an inf gradient (checked only).
 
 It holds the average-pool forward to its plain version bit for bit too,
 in f32 and bf16: at the head shapes (checked and timed) and at edge
@@ -738,7 +741,8 @@ def phase_kernels(torch):
 
 
 #: edge geometries (shape, k, s, pads): ``CASES`` of
-#: tests/test_pooling_pallas.py, then ``POOL_CASES`` of tests/test_kernels.py
+#: tests/test_pooling_pallas.py, then ``POOL_CASES`` of
+#: tests/test_kernels.py, then the tiles of the backward kernels
 MAXPOOL_EDGES = (
     ((2, 8, 12, 12), (3, 3), (2, 2), ((0, 1), (0, 1))),   # ceil-mode 3x3/s2
     ((2, 8, 13, 13), (3, 3), (2, 2), ((1, 1), (1, 1))),   # padded odd extent
@@ -752,6 +756,20 @@ MAXPOOL_EDGES = (
     ((1, 2, 7, 8), (3, 2), (2, 3), ((1, 0), (0, 1))),     # anisotropic
     ((1, 1, 6, 6), (3, 3), (1, 1), ((0, 0), (0, 0))),     # stride-1 overlap
     ((1, 2, 11, 11), (2, 2), (2, 2), ((0, 1), (0, 1))),   # residue shortfall
+    # the backward kernels' tiles: groups of whole 7x7 planes (5a, 5b)
+    ((2, 37, 7, 7), (3, 3), (1, 1), ((1, 1), (1, 1))),
+    # 12289 planes, 2 a CTA: the last group holds one
+    ((1, 12289, 7, 7), (3, 3), (1, 1), ((1, 1), (1, 1))),
+    # one plane a CTA, spans starting off 16 bytes
+    ((3, 5, 57, 57), (3, 3), (2, 2), ((0, 0), (0, 0))),
+    # pool1's plane: row bands in f32 (tie split) and bf16 (both)
+    ((1, 3, 112, 112), (3, 3), (2, 2), ((0, 1), (0, 1))),
+    # row bands in every dtype: stride 1 with halo rows on both sides,
+    # stride 2 on odd-width rows with a ceil overflow window, and the
+    # largest window (64 taps, seven halo rows)
+    ((1, 2, 224, 224), (3, 3), (1, 1), ((1, 1), (1, 1))),
+    ((1, 2, 226, 226), (3, 3), (2, 2), ((0, 1), (0, 1))),
+    ((1, 1, 160, 160), (8, 8), (1, 1), ((0, 0), (0, 0))),
 )
 
 
@@ -773,7 +791,8 @@ def _edge_inputs(torch, gen, shape):
 
 def phase_maxpool_edges(torch):
     """Every max-pool kernel bit-equal to its plain version at the edge
-    geometries, in each of its dtypes (checked only)."""
+    geometries, the forwards in their paths' dtypes and both backwards
+    in f32, bf16 and f16 (checked only)."""
     from bigdl_tpu_torch.ops import pool, pooling
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -791,21 +810,22 @@ def phase_maxpool_edges(torch):
                 if dtype != torch.float16:  # the tie-split path's dtypes
                     bit_equal(torch, pool.maxpool_forward(x, **geo), y,
                               f"maxpool_fwd {what}")
-                    bit_equal(torch, pool.maxpool_tie_split_backward(
-                        x, y, gy, **geo), pool.maxpool_tie_split_backward_plain(
-                        x, y, gy, **geo), f"maxpool_tie_bwd {what}")
-                    checks += 2
+                    checks += 1
+                bit_equal(torch, pool.maxpool_tie_split_backward(
+                    x, y, gy, **geo), pool.maxpool_tie_split_backward_plain(
+                    x, y, gy, **geo), f"maxpool_tie_bwd {what}")
+                gy.view(-1)[0] = float("inf")
                 if dtype != torch.float32:  # the argmax path's dtypes
-                    gy.view(-1)[0] = float("inf")
                     bit_equal(torch, pool.maxpool_forward(
                         x, want_index=True, **geo), (y, idx),
                         f"maxpool_fwd (index) {what}")
-                    bit_equal(torch, pooling.maxpool_argmax_backward(
+                    checks += 1
+                bit_equal(torch, pooling.maxpool_argmax_backward(
+                    gy, idx, shape, **geo),
+                    pooling.maxpool_argmax_backward_plain(
                         gy, idx, shape, **geo),
-                        pooling.maxpool_argmax_backward_plain(
-                            gy, idx, shape, **geo),
-                        f"maxpool_argmax_bwd {what}")
-                    checks += 2
+                    f"maxpool_argmax_bwd {what}")
+                checks += 2
     torch.cuda.synchronize()
     emit({"phase": "kernels", "name": "maxpool", "checked_only": True,
           "geometries": len(MAXPOOL_EDGES), "checks": checks,
