@@ -1,9 +1,9 @@
 // Shared-memory staging for the pooling kernels: a contiguous span of
 // device memory copied into shared memory by 16-byte cp.async and
-// written back by 16-byte stores, the split of a pooling backward into
-// CTA tiles (groups of whole planes, or bands of rows of one plane),
-// and a walk over a tile's elements that carries its (plane, row,
-// column) digits instead of dividing every flat index.
+// written back by 16-byte stores, the split of a pooling forward or
+// backward into CTA tiles (groups of whole planes, or bands of rows of
+// one plane), and a walk over a tile's elements that carries its
+// (plane, row, column) digits instead of dividing every flat index.
 #pragma once
 
 #include <cstring>
@@ -114,12 +114,13 @@ __host__ __device__ __forceinline__ long long span_bytes(long long n, int size) 
 }
 
 // How a pooling backward over nc planes (h x w inputs, oh x ow outputs)
-// is cut into CTAs.  bands == 1: CTA b takes the whole planes
-// [b * group, b * group + group) (the last group may be short).
-// bands > 1: CTA b takes input rows [j * rows, j * rows + rows) of plane
-// b / bands, j = b % bands (group 1).  x_cap, d_cap and o_cap bound the
-// elements a CTA stages of x (with the halo rows its windows' counts
-// need), of dx, and of each output-shaped tensor.
+// is cut into CTAs (a forward's bands: plan_fwd_tiles).  bands == 1:
+// CTA b takes the whole planes [b * group, b * group + group) (the last
+// group may be short).  bands > 1: CTA b takes input rows [j * rows,
+// j * rows + rows) of plane b / bands, j = b % bands (group 1).  x_cap,
+// d_cap and o_cap bound the elements a CTA stages of x (with the halo
+// rows its windows' counts need), of dx, and of each output-shaped
+// tensor.
 struct PoolTiles {
   int group, rows, bands;
   int x_cap, d_cap, o_cap;
@@ -326,6 +327,60 @@ inline PoolTiles plan_tiles(int nc, int h, int w, int oh, int ow, int kh,
     if (band(t.rows) > kMaxSmem) t.blocks = 0;
   }
   return t;
+}
+
+// The tiles of a pooling forward: whole planes as plan_tiles cuts them
+// (d_cap unused), but a band is cut in output rows, since every output
+// has one window and one CTA computes it.  bands > 1: CTA b takes output
+// rows [j * rows, j * rows + rows) of plane b / bands, j = b % bands,
+// and stages the x rows of their windows.  A CTA stages x_bytes a
+// staged x element and o_bytes an output over `spans` spans.
+// blocks == 0: not even a one-row band fits kMaxSmem.
+inline PoolTiles plan_fwd_tiles(int nc, int h, int w, int oh, int ow, int kh,
+                                int sh, int x_bytes, int o_bytes, int spans,
+                                long long budget, long long fill) {
+  PoolTiles t = plan_tiles(nc, h, w, oh, ow, kh, sh, x_bytes, 0, o_bytes,
+                           spans, budget, fill);
+  if (t.bands == 1) return t;
+  auto xrows = [&](long long r) {
+    const long long x = (r - 1) * sh + kh;
+    return x < h ? x : static_cast<long long>(h);
+  };
+  auto band = [&](long long r) {
+    return xrows(r) * w * x_bytes + r * ow * o_bytes + spans * 32;
+  };
+  long long lo = 1, hi = oh;  // largest r with band(r) <= budget, else 1
+  while (lo < hi) {
+    const long long mid = (lo + hi + 1) / 2;
+    if (band(mid) <= budget) lo = mid; else hi = mid - 1;
+  }
+  t.bands = static_cast<int>((oh + lo - 1) / lo);
+  t.rows = (oh + t.bands - 1) / t.bands;
+  t.x_cap = static_cast<int>(xrows(t.rows)) * w;
+  t.o_cap = t.rows * ow;
+  t.blocks = static_cast<unsigned>(static_cast<long long>(nc) * t.bands);
+  if (band(t.rows) > kMaxSmem) t.blocks = 0;
+  return t;
+}
+
+// A forward CTA's rows (plan_fwd_tiles): whole planes as tile_rows
+// gives them; in a band, outputs [oy0, oy1) and x rows [xr0, xr1), every
+// tap of those windows inside the plane (none where no window reaches
+// the plane), r0, r1 repeating xr0, xr1.
+__device__ __forceinline__ TileRows fwd_tile_rows(const PoolTiles& t, int nc,
+                                                  int h, int oh, int kh,
+                                                  int sh, int ph) {
+  if (t.bands == 1) return tile_rows(t, nc, h, oh, kh, sh, ph);
+  TileRows tr;
+  tr.p0 = blockIdx.x / t.bands;
+  tr.planes = 1;
+  tr.oy0 = static_cast<int>(blockIdx.x % t.bands) * t.rows;
+  tr.oy1 = min(oh, tr.oy0 + t.rows);
+  tr.xr0 = min(h, max(0, tr.oy0 * sh - ph));
+  tr.xr1 = max(tr.xr0, min(h, (tr.oy1 - 1) * sh - ph + kh));
+  tr.r0 = tr.xr0;
+  tr.r1 = tr.xr1;
+  return tr;
 }
 
 }  // namespace bigdl

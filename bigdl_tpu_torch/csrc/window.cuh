@@ -2,6 +2,10 @@
 // within-channel LRN forward and backward, the smoothing of the
 // subtractive, divisive and contrastive normalizations).
 //
+// The within-channel LRN's tiles (make_tile_grid, fill_tile, tile_sum)
+// are described here; the smoothing plans its own tiles
+// (smooth2d.cu) and fills them with stage_rows, below.
+//
 // Each block owns one tile of up to 64 x 64 outputs of one plane (a
 // whole 56 x 56 plane at the within-channel LRN's sites; smaller tiles
 // when a stack has too few planes to fill the card).  It first
@@ -13,6 +17,8 @@
 // small, and give every thread a dozen or more outputs, so each block
 // has many independent loads in flight while it stages its tile.
 #pragma once
+
+#include <cstring>
 
 #include "common.cuh"
 
@@ -118,6 +124,60 @@ __device__ __forceinline__ float tile_sum(const float* tile, int cols, int ty,
     for (int j = 0; j < kw; ++j) acc = __fadd_rn(acc, row[j]);
   }
   return acc;
+}
+
+// Fills tile[r * cols + c], r < rows, c < cols, with the f32 value of
+// plane[(row0 + r) * w + col0 + c] where that lies inside the h x w
+// plane and 0 elsewhere (the caller synchronises).  Each thread takes
+// 16-byte chunks of the source rows, one integer division a chunk: a
+// chunk wholly inside the plane and the tile is one 16-byte load, the
+// chunks at the edges element loads.  Rows whose start lies off 16
+// bytes (w * sizeof(T) no multiple of 16) each get their own chunk
+// boundaries.  tile and cols keep rows 16-byte aligned (cols a multiple
+// of 4).
+template <typename T>
+__device__ __forceinline__ void stage_rows(float* tile, int rows, int cols,
+                                           const T* __restrict__ plane, int h,
+                                           int w, int row0, int col0) {
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));
+  const int chunks = (cols + 2 * kPer - 2) / kPer;  // most a row's span meets
+  const unsigned long long base = reinterpret_cast<unsigned long long>(plane);
+  for (int k = threadIdx.x; k < rows * chunks; k += blockDim.x) {
+    const int r = k / chunks;
+    const int gr = row0 + r;
+    const long long start = static_cast<long long>(gr) * w + col0;
+    const int lead = static_cast<int>(
+        (base + static_cast<unsigned long long>(start) * sizeof(T)) % 16) /
+        static_cast<int>(sizeof(T));
+    const int e0 = (k - r * chunks) * kPer - lead;  // tile column of its first element
+    if (e0 >= cols || e0 + kPer <= 0) continue;
+    float* trow = tile + r * cols;
+    const bool row_in = gr >= 0 && gr < h;
+    if (row_in && e0 >= 0 && e0 + kPer <= cols && col0 + e0 >= 0 &&
+        col0 + e0 + kPer <= w) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(plane + start + e0);
+      T v[kPer];
+      memcpy(v, &raw, 16);
+      float f[kPer];
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) f[e] = to_f32(v[e]);
+      if (e0 % 4 == 0) {  // 16-byte stores: element stores of neighbouring
+                          // chunks would fall on the same banks
+#pragma unroll
+        for (int q = 0; q < kPer; q += 4)
+          *reinterpret_cast<float4*>(trow + e0 + q) =
+              make_float4(f[q], f[q + 1], f[q + 2], f[q + 3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kPer; ++e) trow[e0 + e] = f[e];
+      }
+    } else {
+      for (int e = max(e0, 0); e < min(e0 + kPer, cols); ++e) {
+        const int gc = col0 + e;
+        trow[e] = row_in && gc >= 0 && gc < w ? to_f32(plane[start + e]) : 0.f;
+      }
+    }
+  }
 }
 
 }  // namespace bigdl

@@ -96,9 +96,13 @@ def smooth2d(stack: torch.Tensor, kernel: torch.Tensor, pads: Pads,
              flip: bool = False) -> torch.Tensor:
     """Kernel-weighted window sum over a [B, H, W] stack; ``flip=True``
     with swapped pads is the transpose.  A CUDA stack launches the
-    kernel (``csrc/smooth2d.cu``) or raises; a CPU stack runs
-    :func:`smooth2d_plain`.  Not differentiable on its own: the autograd
-    functions below call it in their forwards and backwards."""
+    kernel (``csrc/smooth2d.cu``: tiles of up to 32 x 32 outputs staged
+    in f32 shared memory, each thread summing 4 outputs of a row from
+    registers, two rows at once for the normalizations' 9 x 9 window,
+    which is compiled in; bit-equal to :func:`smooth2d_plain`) or
+    raises; a CPU stack runs :func:`smooth2d_plain`.  Not
+    differentiable on its own: the autograd functions below call it in
+    their forwards and backwards."""
     _check_smooth(stack, kernel)
     if stack.device.type == "cpu":
         return smooth2d_plain(stack, kernel, pads, flip)

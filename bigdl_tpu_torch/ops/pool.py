@@ -423,8 +423,14 @@ def maxpool_forward(x: torch.Tensor, dims: Sequence[int],
     maximum (see :func:`maxpool_forward_plain`).  It is the tie-split
     forward (no index) and the argmax-mode forward (index).  A CUDA
     tensor that passes the structural gate launches the kernel
-    (``csrc/maxpool_fwd.cu``) or raises; a CPU tensor, or another
-    geometry, runs :func:`maxpool_forward_plain`."""
+    (``csrc/maxpool_fwd.cu``: one launch whose CTAs stage a group of
+    whole planes, or the rows of ``x`` under a band of output rows of
+    one plane, in shared memory, take the window maxima there, 3x3
+    windows of stride 1 or 2 as strips of 8 outputs a thread, and write
+    ``y`` and the index back with 16-byte stores; rows too wide to stage
+    take a one-thread-per-output kernel; it allocates nothing beyond
+    ``y`` and the index) or raises; a CPU tensor, or another geometry,
+    runs :func:`maxpool_forward_plain`."""
     if not _max_plane_supported(x, dims, strides) or x.device.type == "cpu":
         return maxpool_forward_plain(x, dims, strides, pads, want_index)
     if x.device.type != "cuda":

@@ -39,6 +39,23 @@ Inception-v1 step (bf16, batch 256, ``cli perf``'s model, seeds and
 batch) with ``split_ties()`` and with the argmax index on every max
 pool: 3 warm-up steps and five windows of 10 steps, finite losses that
 fall, 13 + 13 max-pool launches a step, the median window's ms.
+
+    python3 chip_ab.py --norm OLD_ROOT NEW_ROOT NEW_ROOT OLD_ROOT
+
+times the normalization path instead: each process holds the smoothing
+kernel bit for bit against its plain version at ``chip_smoke.
+_smooth_cases``' three cases (the [1, 224, 224] edge-coverage mass, the
+mean map of the [256, 224, 224] stack and its transpose) in f32 and
+bf16 and times each as ``chip_smoke`` does, with the sum over the three
+launches of one subtractive or divisive pass (twice that is a
+contrastive pass); holds the within-channel LRN forward and backward
+bit for bit at ``chip_smoke._wcl_cases``' two sites and times them
+beside it; then runs
+one forward and backward of each of the four normalization layers of
+``chip_smoke._norm_layers`` (``NORM_SHAPE`` for the smoothing layers) in
+bf16 and f32, exactly ``NORM_PER_PASS`` launches checked and finite
+outputs, and reports each pass's ms (median of three means of 10
+passes between CUDA events).
 """
 
 from __future__ import annotations
@@ -122,6 +139,71 @@ def maxpool_rows(torch, c) -> dict:
     return {"rows": rows, "sums": sums}
 
 
+def norm_rows(torch, c) -> dict:
+    """The smoothing and within-channel LRN kernels at their norm-path
+    shapes: each held to its plain version bit for bit, its device ms
+    and bound; and the smoothing's sum over one subtractive or divisive
+    pass's three launches."""
+    gen = torch.Generator(device="cuda").manual_seed(c.SEED)
+    rows = []
+    for case in c._smooth_cases(torch) + c._wcl_cases(torch):
+        for dtype in (torch.float32, torch.bfloat16):
+            dt = str(dtype)[6:]
+            args = case["make"](gen, case["shape"], dtype)
+            what = f"{case['name']} {case['site']} {dt}"
+            c.bit_equal(torch, case["kernel"](*args), case["plain"](*args),
+                        what)
+            copies = c.rotating_copies(args, torch)
+            nbytes, flops = case["bound"](*args)
+            rows.append({"name": case["name"], "site": case["site"],
+                         "dtype": dt,
+                         "ms": c.graph_ms(torch, case["kernel"], copies,
+                                          max(len(copies), 20)),
+                         "bound_ms": max(nbytes / c.HBM_BYTES_PER_S,
+                                         flops / c.F32_FLOPS_PER_S) * 1e3})
+            del copies, args
+            torch.cuda.empty_cache()
+    sums = {}
+    for dt in ("float32", "bfloat16"):
+        mine = [r for r in rows if r["name"] == "smooth2d"
+                and r["dtype"] == dt]
+        sums[f"smooth2d one subtractive or divisive pass {dt}"] = {
+            "launches": len(mine), "ms": sum(r["ms"] for r in mine),
+            "bound_ms": sum(r["bound_ms"] for r in mine)}
+    return {"rows": rows, "sums": sums}
+
+
+def norm_passes(torch, c, windows=3, calls=10) -> dict:
+    """One forward and backward of each normalization layer through
+    autograd, in bf16 and f32: exactly ``NORM_PER_PASS`` launches,
+    finite outputs, and the median over ``windows`` of the mean ms of
+    ``calls`` passes."""
+    from bigdl_tpu_torch.ops import kernel_launches, reset_kernel_launches
+
+    gen = torch.Generator(device="cuda").manual_seed(c.SEED)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, kind, layer, shape in c._norm_layers(torch):
+            layer = layer.cuda()
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            torch.cuda.synchronize()
+            reset_kernel_launches()
+            y, dx = c._forward_backward(torch, layer, x, g)
+            torch.cuda.synchronize()
+            c.expect_launches(kernel_launches(), c.NORM_PER_PASS[kind], 1,
+                              f"{name} {str(dtype)[6:]}")
+            if not (torch.isfinite(y).all() and torch.isfinite(dx).all()):
+                raise RuntimeError(f"{name}: output not finite")
+            ms = sorted(c.event_ms(torch, lambda: c._forward_backward(
+                torch, layer, x, g), [()], calls=calls)
+                for _ in range(windows))
+            out[f"{name} {str(dtype)[6:]}"] = ms[len(ms) // 2]
+            del x, g, y, dx
+            torch.cuda.empty_cache()
+    return out
+
+
 def pool_step(torch, c, mode: str, warmup=3, iters=10, windows=5) -> dict:
     """The bf16 batch-256 Inception-v1 step with every max pool in
     ``mode`` ("tie" or "argmax"): median ms of ``windows`` windows."""
@@ -192,6 +274,17 @@ def one_maxpool(root: str) -> dict:
                       for mode in ("tie", "argmax")}}
 
 
+def one_norm(root: str) -> dict:
+    """The normalization-path measurements of one checkout, in this
+    process."""
+    root, torch, c = _checked_imports(root)
+    from bigdl_tpu_torch.device import strict_f32
+
+    strict_f32()
+    return {"root": root, "norm": norm_rows(torch, c),
+            "passes": norm_passes(torch, c)}
+
+
 def one(root: str) -> dict:
     """The measurements of one checkout, in this process."""
     root, torch, c = _checked_imports(root)
@@ -234,9 +327,20 @@ def one(root: str) -> dict:
             "lm_losses": losses}
 
 
-def _summary(mine, maxpool: bool) -> dict:
+def _summary(mine, mode: str) -> dict:
     """Means over one root's processes."""
-    if maxpool:
+    if mode == "norm":
+        first = mine[0]["norm"]
+        return {"processes": len(mine),
+                **{f"{r['name']} {r['site']} {r['dtype']} ms": fmean(
+                    m["norm"]["rows"][i]["ms"] for m in mine)
+                   for i, r in enumerate(first["rows"])},
+                **{f"{key} ms": fmean(m["norm"]["sums"][key]["ms"]
+                                      for m in mine)
+                   for key in first["sums"]},
+                **{f"{key} pass ms": fmean(m["passes"][key] for m in mine)
+                   for key in mine[0]["passes"]}}
+    if mode == "maxpool":
         sums = mine[0]["maxpool"]["sums"]
         return {"processes": len(mine),
                 **{f"{mode}_step_ms": fmean(r["steps"][mode]["step_ms"]
@@ -257,11 +361,12 @@ def _summary(mine, maxpool: bool) -> dict:
 
 def main(argv) -> int:
     if len(argv) == 3 and argv[0] == "--one":
-        run = one_maxpool if argv[1] == "maxpool" else one
+        run = {"maxpool": one_maxpool, "norm": one_norm}.get(argv[1], one)
         print(json.dumps(run(argv[2])), flush=True)
         return 0
-    maxpool = bool(argv) and argv[0] == "--maxpool"
-    roots = argv[1:] if maxpool else argv
+    mode = argv[0][2:] if argv and argv[0] in ("--maxpool", "--norm") \
+        else "default"
+    roots = argv if mode == "default" else argv[1:]
     if not roots:
         print(__doc__, file=sys.stderr)
         return 2
@@ -273,8 +378,8 @@ def main(argv) -> int:
     runs = []
     for root in roots:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--one", "maxpool" if maxpool else "default",
-                               root], capture_output=True, text=True)
+                               "--one", mode, root], capture_output=True,
+                              text=True)
         sys.stderr.write(proc.stderr[-4000:])
         if proc.returncode != 0:
             print(f"chip_ab: {root} exited {proc.returncode}", file=sys.stderr)
@@ -291,7 +396,7 @@ def main(argv) -> int:
     summary = {}
     for root in dict.fromkeys(r["root"] for r in runs):
         summary[root] = _summary([r for r in runs if r["root"] == root],
-                                 maxpool)
+                                 mode)
     print(card, flush=True)
     print(json.dumps({"summary": summary}), flush=True)
     return 0

@@ -93,8 +93,11 @@ anisotropic windows, stride 1, global 7x7, the bottom-row residue
 shortfall) and at geometries that reach each tile of the backward
 kernels (groups of whole planes with a short last group, spans off 16
 bytes, row bands with halo rows at stride 1 and 2 and a 64-tap window),
-both backwards in f32, bf16 and f16, with tie-heavy inputs, all -inf
-windows, NaN, -0.0 beside +0.0 and an inf gradient (checked only).
+the forward with and without the index and both backwards, each in
+f32, bf16 and f16, with tie-heavy inputs, all -inf windows, NaN, -0.0
+beside +0.0 and an inf gradient (checked only); and the forward alone
+on rows too wide for its staged tiles, which take its
+one-thread-per-output kernel (``MAXPOOL_FWD_EDGES``).
 
 It holds the average-pool forward to its plain version bit for bit too,
 in f32 and bf16: at the head shapes (checked and timed) and at edge
@@ -108,10 +111,14 @@ to stage, which takes the one-thread-per-output kernel.
 The kernels phase also holds the within-channel LRN forward and
 backward at the norm phase's two sites, and the smoothing kernel at its
 three call shapes (the [1, 224, 224] edge-coverage mass, the mean map
-of the [256, 224, 224] stack and its transpose), against their plain
-versions in f32 and bf16 and times them; the smoothing's yardstick is
-``F.conv2d`` with the kernel as a [1, 1, 9, 9] weight (TF32 off), the
-within-channel LRN has none.
+of the [256, 224, 224] stack and its transpose, bit for bit), against
+their plain versions in f32 and bf16 and times them; the smoothing's
+yardstick is ``F.conv2d`` with the kernel as a [1, 1, 9, 9] weight
+(TF32 off), the within-channel LRN has none.  The smoothing is also
+held bit for bit at ``SMOOTH_EDGES`` in both directions, f32 and bf16
+(checked only): the 9x9 window on planes of widths that are no multiple
+of 4, smaller than the window and alone in the stack, and random-weight
+8x8, 3x11 and 32x32 windows on the run-time path.
 
 The kernels phase also holds the three flash-attention kernels against
 their plain versions in f32 and bf16 at the training shape
@@ -648,7 +655,7 @@ def _smooth_cases(torch):
             plain=lambda v, p=pads, f=flip: norm.smooth2d_plain(v, kernel, p,
                                                                 f),
             library_inputs=lambda v, f=flip: conv_inputs(v, f),
-            library=conv,
+            library=conv, exact=True,
             # the stack in, the smoothed stack out; a multiply and an add
             # per tap
             bound=lambda v: (2 * v.numel() * v.element_size() + 4 * kh * kw,
@@ -773,6 +780,14 @@ MAXPOOL_EDGES = (
 )
 
 
+#: a forward-only edge geometry: rows too wide for a one-row band of
+#: the staged forward to fit a CTA's shared memory, which take its
+#: one-thread-per-output kernel (the backwards refuse such rows)
+MAXPOOL_FWD_EDGES = (
+    ((1, 2, 3, 40000), (3, 3), (1, 1), ((0, 0), (0, 0))),
+)
+
+
 def _edge_inputs(torch, gen, shape):
     """Normal, tie-heavy (quantized to halves) and special inputs: the
     tie-heavy values with a 3x3 block of -inf in the first plane (its
@@ -791,13 +806,13 @@ def _edge_inputs(torch, gen, shape):
 
 def phase_maxpool_edges(torch):
     """Every max-pool kernel bit-equal to its plain version at the edge
-    geometries, the forwards in their paths' dtypes and both backwards
-    in f32, bf16 and f16 (checked only)."""
+    geometries, the forward with and without the index and both
+    backwards, each in f32, bf16 and f16 (checked only)."""
     from bigdl_tpu_torch.ops import pool, pooling
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     checks = 0
-    for shape, k, s, p in MAXPOOL_EDGES:
+    for shape, k, s, p in MAXPOOL_EDGES + MAXPOOL_FWD_EDGES:
         geo = dict(dims=(1, 1) + k, strides=(1, 1) + s,
                    pads=((0, 0), (0, 0)) + p)
         for kind, x32 in _edge_inputs(torch, gen, shape).items():
@@ -807,19 +822,19 @@ def phase_maxpool_edges(torch):
                 y, idx = pool.maxpool_forward_plain(x, want_index=True, **geo)
                 gy = torch.randn(y.shape, generator=gen,
                                  device="cuda").to(dtype)
-                if dtype != torch.float16:  # the tie-split path's dtypes
-                    bit_equal(torch, pool.maxpool_forward(x, **geo), y,
-                              f"maxpool_fwd {what}")
-                    checks += 1
+                # the forward in every dtype, with and without the index
+                bit_equal(torch, pool.maxpool_forward(x, **geo), y,
+                          f"maxpool_fwd {what}")
+                bit_equal(torch, pool.maxpool_forward(
+                    x, want_index=True, **geo), (y, idx),
+                    f"maxpool_fwd (index) {what}")
+                checks += 2
+                if (shape, k, s, p) in MAXPOOL_FWD_EDGES:
+                    continue
                 bit_equal(torch, pool.maxpool_tie_split_backward(
                     x, y, gy, **geo), pool.maxpool_tie_split_backward_plain(
                     x, y, gy, **geo), f"maxpool_tie_bwd {what}")
                 gy.view(-1)[0] = float("inf")
-                if dtype != torch.float32:  # the argmax path's dtypes
-                    bit_equal(torch, pool.maxpool_forward(
-                        x, want_index=True, **geo), (y, idx),
-                        f"maxpool_fwd (index) {what}")
-                    checks += 1
                 bit_equal(torch, pooling.maxpool_argmax_backward(
                     gy, idx, shape, **geo),
                     pooling.maxpool_argmax_backward_plain(
@@ -828,9 +843,61 @@ def phase_maxpool_edges(torch):
                 checks += 2
     torch.cuda.synchronize()
     emit({"phase": "kernels", "name": "maxpool", "checked_only": True,
-          "geometries": len(MAXPOOL_EDGES), "checks": checks,
+          "geometries": len(MAXPOOL_EDGES) + len(MAXPOOL_FWD_EDGES),
+          "checks": checks,
           "tolerance": "bit-equal",
           "inputs": "normal, tie-heavy, special (-inf block, NaN, -0.0)"})
+
+
+#: smoothing edge cases (stack shape, window), checked only: the
+#: normalizations' 9x9 Gaussian (the compiled-in window) on planes
+#: whose width is no multiple of a unit's 4 outputs, on planes smaller
+#: than the window and on one plane (tiles shrink to fill the card),
+#: then random weights on the run-time path: an even window (asymmetric
+#: pads, mirrored in the transpose), a non-square one and the largest
+SMOOTH_EDGES = (
+    ((3, 37, 53), (9, 9)),
+    ((2, 5, 7), (9, 9)),
+    ((1, 100, 77), (9, 9)),
+    ((2, 40, 40), (8, 8)),
+    ((2, 30, 50), (3, 11)),
+    ((2, 48, 48), (32, 32)),
+)
+
+
+def phase_smooth_edges(torch):
+    """The smoothing kernel bit-equal to its plain version at
+    ``SMOOTH_EDGES``, forward and transpose (flipped weights, mirrored
+    pads, as the normalizations' backwards call it), in f32 and bf16, on
+    normal inputs and on inputs rounded to integers (zeros of both
+    signs; checked only)."""
+    from bigdl_tpu_torch.nn.layers.normalization import _gaussian_kernel
+    from bigdl_tpu_torch.ops import norm
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    checks = 0
+    for shape, (kh, kw) in SMOOTH_EDGES:
+        kernel = (torch.from_numpy(_gaussian_kernel(9)).cuda()
+                  if (kh, kw) == (9, 9)
+                  else torch.randn((kh, kw), generator=gen, device="cuda"))
+        x = torch.randn(shape, generator=gen, device="cuda")
+        for kind, v32 in (("normal", x), ("rounded", torch.round(x))):
+            for flip in (False, True):
+                pads = (norm._transpose_pads if flip
+                        else norm._fwd_pads)(kh, kw)
+                for dtype in (torch.float32, torch.bfloat16):
+                    v = v32.to(dtype)
+                    bit_equal(torch, norm.smooth2d(v, kernel, pads, flip),
+                              norm.smooth2d_plain(v, kernel, pads, flip),
+                              f"smooth2d {shape} {kh}x{kw} flip={flip} "
+                              f"{kind} {str(dtype)[6:]}")
+                    checks += 1
+    torch.cuda.synchronize()
+    emit({"phase": "kernels", "name": "smooth2d", "checked_only": True,
+          "geometries": [f"{list(shape)} {kh}x{kw}"
+                         for shape, (kh, kw) in SMOOTH_EDGES],
+          "checks": checks, "tolerance": "bit-equal",
+          "inputs": "normal, rounded to integers (+0.0 and -0.0)"})
 
 
 #: average-pool edge geometries (name, shape, SpatialAveragePooling
@@ -1856,6 +1923,7 @@ def main() -> int:
     rows = phase_kernels(torch) + phase_flash_kernels(torch)
     phase_maxpool_edges(torch)
     phase_avg_pool_edges(torch)
+    phase_smooth_edges(torch)
     serve_launches = phase_serve(torch, card)
     default = phase_train(torch, card, root)
     tie_launches, argmax_launches = phase_train_pool(torch, card, root,
