@@ -55,16 +55,30 @@ one forward and backward of each of the four normalization layers of
 ``chip_smoke._norm_layers`` (``NORM_SHAPE`` for the smoothing layers) in
 bf16 and f32, exactly ``NORM_PER_PASS`` launches checked and finite
 outputs, and reports each pass's ms (median of three means of 10
-passes between CUDA events).
+passes between CUDA events) and its device ms (``torch.profiler``'s
+kernel time over 10 passes, which leaves out the device's waits for
+the host).
+
+    python3 chip_ab.py --norm --sass DIR OLD_ROOT NEW_ROOT NEW_ROOT OLD_ROOT
+
+also writes the SASS of each root's within-channel LRN libraries
+(``cuobjdump -sass``) into DIR, one file a root and kernel, and prints
+each kernel function's instruction count beside its adds, multiplies,
+fused multiply-adds, special-function, shared and global loads and
+stores.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
+from collections import Counter
 from statistics import fmean
 
 STEPS = {"flash_fwd": 6, "flash_dq": 6, "flash_dkv": 6}
@@ -173,34 +187,63 @@ def norm_rows(torch, c) -> dict:
     return {"rows": rows, "sums": sums}
 
 
+def device_ms(torch, fn, calls: int) -> float:
+    """Device milliseconds of one ``fn()`` call: the profiler's kernel
+    time summed over ``calls`` calls, divided by ``calls``.  Unlike the
+    time between two events it leaves out the gaps where the device
+    waits for the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()) \
+        / calls / 1e3
+
+
 def norm_passes(torch, c, windows=3, calls=10) -> dict:
     """One forward and backward of each normalization layer through
     autograd, in bf16 and f32: exactly ``NORM_PER_PASS`` launches,
-    finite outputs, and the median over ``windows`` of the mean ms of
-    ``calls`` passes."""
+    finite outputs, the median over ``windows`` of the mean ms of
+    ``calls`` passes between CUDA events, and the device ms of a pass
+    (``device_ms``, keys ending in "device").  Every pass is timed
+    between events before the first profiler session: the host launches
+    more slowly after one."""
     from bigdl_tpu_torch.ops import kernel_launches, reset_kernel_launches
 
-    gen = torch.Generator(device="cuda").manual_seed(c.SEED)
     out = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        for name, kind, layer, shape in c._norm_layers(torch):
-            layer = layer.cuda()
-            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-            torch.cuda.synchronize()
-            reset_kernel_launches()
-            y, dx = c._forward_backward(torch, layer, x, g)
-            torch.cuda.synchronize()
-            c.expect_launches(kernel_launches(), c.NORM_PER_PASS[kind], 1,
-                              f"{name} {str(dtype)[6:]}")
-            if not (torch.isfinite(y).all() and torch.isfinite(dx).all()):
-                raise RuntimeError(f"{name}: output not finite")
-            ms = sorted(c.event_ms(torch, lambda: c._forward_backward(
-                torch, layer, x, g), [()], calls=calls)
-                for _ in range(windows))
-            out[f"{name} {str(dtype)[6:]}"] = ms[len(ms) // 2]
-            del x, g, y, dx
-            torch.cuda.empty_cache()
+    for profiled in (False, True):
+        gen = torch.Generator(device="cuda").manual_seed(c.SEED)
+        for dtype in (torch.bfloat16, torch.float32):
+            for name, kind, layer, shape in c._norm_layers(torch):
+                layer = layer.cuda()
+                x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                key = f"{name} {str(dtype)[6:]}"
+
+                def fn():
+                    return c._forward_backward(torch, layer, x, g)
+
+                if profiled:
+                    out[f"{key} device"] = device_ms(torch, fn, calls)
+                else:
+                    torch.cuda.synchronize()
+                    reset_kernel_launches()
+                    y, dx = fn()
+                    torch.cuda.synchronize()
+                    c.expect_launches(kernel_launches(), c.NORM_PER_PASS[kind],
+                                      1, key)
+                    if not (torch.isfinite(y).all()
+                            and torch.isfinite(dx).all()):
+                        raise RuntimeError(f"{name}: output not finite")
+                    del y, dx
+                    ms = sorted(c.event_ms(torch, fn, [()], calls=calls)
+                                for _ in range(windows))
+                    out[key] = ms[len(ms) // 2]
+                del x, g
+                torch.cuda.empty_cache()
     return out
 
 
@@ -327,6 +370,32 @@ def one(root: str) -> dict:
             "lm_losses": losses}
 
 
+def sass_counts(root: str, out_dir: str, tag: str) -> dict:
+    """Write the SASS of ``root``'s newest built within-channel LRN
+    libraries to ``out_dir`` as ``<tag>.<kernel>.sass`` and count each
+    kernel function's instructions, by opcode for the ones that bound
+    these kernels."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    counts = {}
+    for name in ("wcl_fwd", "wcl_bwd"):
+        libs = sorted(glob.glob(os.path.join(
+            root, "bigdl_tpu_torch", "build", f"{name}-*.so")),
+            key=os.path.getmtime)
+        sass = subprocess.run([tool, "-sass", libs[-1]], capture_output=True,
+                              text=True, check=True).stdout
+        with open(os.path.join(out_dir, f"{tag}.{name}.sass"), "w") as f:
+            f.write(sass)
+        for body in re.split(r"\n\s*Function : ", sass)[1:]:
+            ops = Counter(m.group(1).split(".")[0] for m in re.finditer(
+                r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                body))
+            counts.setdefault(name, {})[body.split("\n", 1)[0].strip()] = {
+                "instructions": sum(ops.values()),
+                **{op: ops[op] for op in ("FADD", "FMUL", "FFMA", "MUFU",
+                                          "LDS", "STS", "LDG", "STG")}}
+    return counts
+
+
 def _summary(mine, mode: str) -> dict:
     """Means over one root's processes."""
     if mode == "norm":
@@ -367,6 +436,9 @@ def main(argv) -> int:
     mode = argv[0][2:] if argv and argv[0] in ("--maxpool", "--norm") \
         else "default"
     roots = argv if mode == "default" else argv[1:]
+    sass_dir = None
+    if mode == "norm" and roots[:1] == ["--sass"]:
+        sass_dir, roots = roots[1], roots[2:]
     if not roots:
         print(__doc__, file=sys.stderr)
         return 2
@@ -397,6 +469,11 @@ def main(argv) -> int:
     for root in dict.fromkeys(r["root"] for r in runs):
         summary[root] = _summary([r for r in runs if r["root"] == root],
                                  mode)
+    if sass_dir is not None:
+        os.makedirs(sass_dir, exist_ok=True)
+        print(json.dumps({"sass": {
+            root: sass_counts(root, sass_dir, f"{i}-{os.path.basename(root)}")
+            for i, root in enumerate(summary)}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"summary": summary}), flush=True)
     return 0

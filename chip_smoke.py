@@ -108,17 +108,24 @@ of the staged kernel's plane group, an input that starts off a 16-byte
 boundary (a contiguous slice of a larger buffer), and a plane too large
 to stage, which takes the one-thread-per-output kernel.
 
-The kernels phase also holds the within-channel LRN forward and
-backward at the norm phase's two sites, and the smoothing kernel at its
-three call shapes (the [1, 224, 224] edge-coverage mass, the mean map
-of the [256, 224, 224] stack and its transpose, bit for bit), against
-their plain versions in f32 and bf16 and times them; the smoothing's
-yardstick is ``F.conv2d`` with the kernel as a [1, 1, 9, 9] weight
-(TF32 off), the within-channel LRN has none.  The smoothing is also
-held bit for bit at ``SMOOTH_EDGES`` in both directions, f32 and bf16
-(checked only): the 9x9 window on planes of widths that are no multiple
-of 4, smaller than the window and alone in the stack, and random-weight
-8x8, 3x11 and 32x32 windows on the run-time path.
+The kernels phase also holds the within-channel LRN forward (y and
+scale) and backward at the norm phase's two sites, and the smoothing
+kernel at its three call shapes (the [1, 224, 224] edge-coverage mass,
+the mean map of the [256, 224, 224] stack and its transpose), bit for
+bit against their plain versions in f32 and bf16, and times them; the
+smoothing's yardstick is ``F.conv2d`` with the kernel as a [1, 1, 9, 9]
+weight (TF32 off), the within-channel LRN has none.  The smoothing is
+also held bit for bit at ``SMOOTH_EDGES`` in both directions, f32 and
+bf16 (checked only): the 9x9 window on planes of widths that are no
+multiple of 4, smaller than the window and alone in the stack, and
+random-weight 8x8, 3x11 and 32x32 windows on the run-time path.  The
+within-channel LRN forward and backward are held bit for bit at
+``WCL_EDGES`` (checked only), f32 and bf16, normal inputs and inputs
+rounded to integers, at alpha 1e-4 and 1 and beta 0.75 and 0.5 (the
+rsqrt branch): the compiled-in 5x5 on planes of widths that are no
+multiple of 4, smaller than the window, alone in the stack and starting
+off 16 bytes, and 4x4, 2x2 (asymmetric pads), 1x1 and 32x32 windows on
+the run-time path.
 
 The kernels phase also holds the three flash-attention kernels against
 their plain versions in f32 and bf16 at the training shape
@@ -574,7 +581,7 @@ NORM_PER_PASS = {
 
 def _wcl_cases(torch):
     """The within-channel LRN forward and backward at the norm path's
-    two sites; no single PyTorch call computes either."""
+    two sites, bit for bit; no single PyTorch call computes either."""
     from bigdl_tpu_torch.ops import lrn
 
     size, alpha, beta = WCL_HYPER
@@ -592,7 +599,7 @@ def _wcl_cases(torch):
     cases = []
     for site, c in LRN_SITES:
         common = dict(path="norm", site=site, shape=(TRAIN_BATCH, c, 56, 56),
-                      library=None)
+                      library=None, exact=True)
         cases += [
             dict(name="within_channel_lrn_fwd", make=make_x,
                  kernel=lambda x: lrn.within_channel_lrn_forward(
@@ -896,6 +903,73 @@ def phase_smooth_edges(torch):
     emit({"phase": "kernels", "name": "smooth2d", "checked_only": True,
           "geometries": [f"{list(shape)} {kh}x{kw}"
                          for shape, (kh, kw) in SMOOTH_EDGES],
+          "checks": checks, "tolerance": "bit-equal",
+          "inputs": "normal, rounded to integers (+0.0 and -0.0)"})
+
+
+#: within-channel LRN edge cases (name, shape, window, offset of x in
+#: elements from a 16-byte boundary), checked only: the compiled-in 5x5
+#: on planes whose width is no multiple of a unit's 4 outputs, smaller
+#: than the window and alone in the stack (tiles shrink to fill the
+#: card), then the run-time path: even windows (asymmetric pads,
+#: swapped in the backward), size 1 and the largest window; and the
+#: 5x5 on an input that starts off 16 bytes (element loads)
+WCL_EDGES = (
+    ("5x5, width off 4", (2, 3, 37, 53), 5, 0),
+    ("5x5, planes under the window", (2, 2, 3, 4), 5, 0),
+    ("5x5, one plane", (1, 1, 100, 77), 5, 0),
+    ("4x4", (2, 3, 40, 40), 4, 0),
+    ("2x2", (2, 3, 33, 31), 2, 0),
+    ("1x1", (2, 3, 20, 21), 1, 0),
+    ("32x32", (1, 2, 48, 48), 32, 0),
+    ("5x5, x 3 elements off 16 bytes", (2, 3, 56, 56), 5, 3),
+)
+#: (alpha, beta) of the edge checks: the norm path's, and alpha 1 so
+#: that the window sums move the scale's low bits, at beta 0.5 (the
+#: rsqrt branch) and 0.75
+WCL_EDGE_HYPERS = ((1e-4, 0.75), (1.0, 0.5), (1.0, 0.75))
+
+
+def phase_wcl_edges(torch):
+    """The within-channel LRN forward (y and scale) and backward
+    bit-equal to their plain versions at ``WCL_EDGES`` and
+    ``WCL_EDGE_HYPERS``, in f32 and bf16, on normal inputs and on inputs
+    rounded to integers (zeros of both signs; checked only)."""
+    from bigdl_tpu_torch.ops import lrn
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    checks = 0
+    for name, shape, size, offset in WCL_EDGES:
+        x = torch.randn(shape, generator=gen, device="cuda")
+        g = torch.randn(shape, generator=gen, device="cuda")
+        for kind, x32, g32 in (("normal", x, g),
+                               ("rounded", torch.round(x), torch.round(g))):
+            for dtype in (torch.float32, torch.bfloat16):
+                buf = torch.empty(offset + math.prod(shape), dtype=dtype,
+                                  device="cuda")
+                xd = buf[offset:].view(shape)
+                xd.copy_(x32)
+                gd = g32.to(dtype)
+                for alpha, beta in WCL_EDGE_HYPERS:
+                    what = (f"{name} {list(shape)} alpha={alpha} beta={beta} "
+                            f"{kind} {str(dtype)[6:]}")
+                    want = lrn.within_channel_lrn_plain(xd, size, alpha, beta)
+                    bit_equal(torch, lrn.within_channel_lrn_forward(
+                        xd, size, alpha, beta), want,
+                        f"within_channel_lrn_fwd {what}")
+                    scale = want[1]
+                    bit_equal(torch, lrn.within_channel_lrn_backward(
+                        xd, scale, gd, size, alpha, beta),
+                        lrn.within_channel_lrn_backward_plain(
+                            xd, scale, gd, size, alpha, beta),
+                        f"within_channel_lrn_bwd {what}")
+                    checks += 2
+    torch.cuda.synchronize()
+    emit({"phase": "kernels", "name": "within_channel_lrn",
+          "checked_only": True,
+          "geometries": [f"{name} {list(shape)}"
+                         for name, shape, _, _ in WCL_EDGES],
+          "hyper": [list(h) for h in WCL_EDGE_HYPERS],
           "checks": checks, "tolerance": "bit-equal",
           "inputs": "normal, rounded to integers (+0.0 and -0.0)"})
 
@@ -1924,6 +1998,7 @@ def main() -> int:
     phase_maxpool_edges(torch)
     phase_avg_pool_edges(torch)
     phase_smooth_edges(torch)
+    phase_wcl_edges(torch)
     serve_launches = phase_serve(torch, card)
     default = phase_train(torch, card, root)
     tie_launches, argmax_launches = phase_train_pool(torch, card, root,
