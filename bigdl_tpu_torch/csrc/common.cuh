@@ -26,6 +26,26 @@ template <> __device__ __forceinline__ __half from_f32<__half>(float v) {
   return __float2half_rn(v);
 }
 
+// An unsigned type of S bytes, to move S bytes of elements as one value
+// (one load or store of 1 to 16 bytes).
+template <int S> struct RawBits;
+template <> struct RawBits<1> { using type = unsigned char; };
+template <> struct RawBits<2> { using type = unsigned short; };
+template <> struct RawBits<4> { using type = unsigned int; };
+template <> struct RawBits<8> { using type = uint2; };
+template <> struct RawBits<16> { using type = uint4; };
+
+// s^p for s > 0 as lrn_pallas.py _pow computes it: rsqrt when p ==
+// -0.5, else exp(p * log(s)), with log_s = logf(s) (which a caller that
+// takes two powers of one s forms once).
+__device__ __forceinline__ float pow_from_log(float s, float log_s, float p) {
+  return (p == -0.5f) ? rsqrtf(s) : expf(__fmul_rn(p, log_s));
+}
+
+__device__ __forceinline__ float pow_p(float s, float p) {
+  return (p == -0.5f) ? rsqrtf(s) : expf(__fmul_rn(p, logf(s)));
+}
+
 // Division of unsigned n < 2^31 by a divisor d fixed at launch, as a
 // multiply-high, an add and a shift (the round-up magic-number method of
 // Granlund and Montgomery): a kernel that splits a flat index into

@@ -40,11 +40,6 @@ __device__ __forceinline__ void stage_span(T* tile, const T* src, int n,
   }
 }
 
-template <int S> struct RawBits;
-template <> struct RawBits<1> { using type = unsigned char; };
-template <> struct RawBits<2> { using type = unsigned short; };
-template <> struct RawBits<4> { using type = unsigned int; };
-
 // Writes src[0, n) (shared memory) to dst[0, n) (device memory): one
 // 16-byte store a thread for every aligned chunk of dst, element stores
 // at the two ends.  A chunk is read from shared memory as one 16-byte

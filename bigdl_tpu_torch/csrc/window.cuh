@@ -373,15 +373,4 @@ inline bool aligned4(const void* p) {
   return reinterpret_cast<unsigned long long>(p) % (4 * sizeof(T)) == 0;
 }
 
-// s^p for s > 0 as lrn_pallas.py _pow computes it: rsqrt when p ==
-// -0.5, else exp(p * log(s)), with log_s = logf(s) (which a caller that
-// takes two powers of one s forms once).
-__device__ __forceinline__ float pow_from_log(float s, float log_s, float p) {
-  return (p == -0.5f) ? rsqrtf(s) : expf(__fmul_rn(p, log_s));
-}
-
-__device__ __forceinline__ float pow_p(float s, float p) {
-  return (p == -0.5f) ? rsqrtf(s) : expf(__fmul_rn(p, logf(s)));
-}
-
 }  // namespace bigdl

@@ -182,8 +182,10 @@ def cross_map_lrn_backward(x: torch.Tensor, den: torch.Tensor,
                            g: torch.Tensor, size: int, alpha: float,
                            beta: float) -> torch.Tensor:
     """dx of cross-map LRN.  A CUDA tensor launches the kernel
-    (``csrc/lrn_bwd.cu``) or raises; a CPU tensor, or a shape the kernel
-    does not take by structure, runs
+    (``csrc/lrn_bwd.cu``: pixel vectors of 8 bytes where the pixel count
+    and the bases allow them, an element a thread otherwise, both
+    bit-equal to the plain version) or raises; a CPU tensor, or a shape
+    the kernel does not take by structure, runs
     :func:`cross_map_lrn_backward_plain`."""
     if not _kernel_supported(x, size) or x.device.type == "cpu":
         return cross_map_lrn_backward_plain(x, den, g, size, alpha, beta)

@@ -250,9 +250,12 @@ def avg_pool_backward_plain(wgt: torch.Tensor, x_shape, dims, strides,
 def avg_pool_backward(wgt: torch.Tensor, x_shape, dims, strides,
                       pads: Pads, dtype: torch.dtype) -> torch.Tensor:
     """dx of the window sum from the out-grid weights ``wgt``.  A CUDA
-    tensor launches the kernel (``csrc/avg_pool_bwd.cu``) or raises; a
-    CPU tensor, or a geometry the kernel does not take by structure,
-    runs :func:`avg_pool_backward_plain`."""
+    tensor launches the kernel (``csrc/avg_pool_bwd.cu``: groups of
+    planes staged in shared memory where a plane's ``wgt`` and dx fit
+    32 KB, an element a thread otherwise, both bit-equal to the plain
+    version) or
+    raises; a CPU tensor, or a geometry the kernel does not take by
+    structure, runs :func:`avg_pool_backward_plain`."""
     supported = (len(x_shape) == 4 and tuple(dims[:2]) == (1, 1)
                  and tuple(strides[:2]) == (1, 1))
     if not supported or wgt.device.type == "cpu":

@@ -59,13 +59,31 @@ passes between CUDA events) and its device ms (``torch.profiler``'s
 kernel time over 10 passes, which leaves out the device's waits for
 the host).
 
-    python3 chip_ab.py --norm --sass DIR OLD_ROOT NEW_ROOT NEW_ROOT OLD_ROOT
+    python3 chip_ab.py --train OLD_ROOT NEW_ROOT NEW_ROOT OLD_ROOT
 
-also writes the SASS of each root's within-channel LRN libraries
-(``cuobjdump -sass``) into DIR, one file a root and kernel, and prints
-each kernel function's instruction count beside its adds, multiplies,
-fused multiply-adds, special-function, shared and global loads and
-stores.
+times the two backward kernels of the default Inception-v1 step
+instead: each process holds the cross-map LRN backward at
+``chip_smoke._lrn_bwd_cases``' two sites (norm1 [256, 64, 56, 56], norm2
+[256, 192, 56, 56]) and the average-pool backward at the head
+(``_pool_bwd_cases``, [256, 1024, 7, 7]) bit for bit against their plain
+versions in bf16 and f32, times each as ``chip_smoke`` does beside its
+byte bound and its PyTorch call (the backward of
+``F.local_response_norm``, ``aten.avg_pool2d_backward``), then times the
+default step (bf16, batch 256, ``cli perf``'s model, seeds and batch): 3
+warm-up steps and five windows of 10 steps, finite losses that fall,
+2/2/1/1 LRN and average-pool launches a step, the median window's ms;
+then five more steps under ``torch.profiler``: a step's device ms, in
+all and in the two backward kernels.
+
+    python3 chip_ab.py --norm --sass DIR OLD_ROOT NEW_ROOT NEW_ROOT OLD_ROOT
+    python3 chip_ab.py --train --sass DIR OLD_ROOT NEW_ROOT NEW_ROOT OLD_ROOT
+
+also write the SASS of each root's libraries of the mode's kernels
+(``cuobjdump -sass``; the within-channel LRN's for ``--norm``, the
+cross-map LRN and average-pool backwards' for ``--train``) into DIR,
+one file a root and kernel, and print each kernel function's
+instruction count beside its adds, multiplies, fused multiply-adds,
+special-function, shared and global loads and stores.
 """
 
 from __future__ import annotations
@@ -187,11 +205,44 @@ def norm_rows(torch, c) -> dict:
     return {"rows": rows, "sums": sums}
 
 
-def device_ms(torch, fn, calls: int) -> float:
+def train_rows(torch, c) -> dict:
+    """The cross-map LRN backward at its two sites and the average-pool
+    backward at the head, in bf16 and f32: each held to its plain version
+    bit for bit, its device ms beside its byte bound and its PyTorch
+    call's ms."""
+    gen = torch.Generator(device="cuda").manual_seed(c.SEED)
+    rows = []
+    for case in c._lrn_bwd_cases(torch) + c._pool_bwd_cases(torch):
+        for dtype in (torch.bfloat16, torch.float32):
+            dt = str(dtype)[6:]
+            args = case["make"](gen, case["shape"], dtype)
+            c.bit_equal(torch, case["kernel"](*args), case["plain"](*args),
+                        f"{case['name']} {case['site']} {dt}")
+            copies = c.rotating_copies(args, torch)
+            launches = max(len(copies), 20)
+            nbytes, _ = case["bound"](*args)
+            ms = c.graph_ms(torch, case["kernel"], copies, launches)
+            if "library_inputs" in case:
+                lib_args = [case["library_inputs"](*a) for a in copies]
+                library_ms = c.event_ms(torch, case["library"], lib_args)
+                del lib_args
+            else:
+                library_ms = c.graph_ms(torch, case["library"], copies,
+                                        launches)
+            rows.append({"name": case["name"], "site": case["site"],
+                         "dtype": dt, "ms": ms, "library_ms": library_ms,
+                         "bound_ms": nbytes / c.HBM_BYTES_PER_S * 1e3})
+            del copies, args
+            torch.cuda.empty_cache()
+    return {"rows": rows}
+
+
+def device_ms(torch, fn, calls: int, names=()) -> dict:
     """Device milliseconds of one ``fn()`` call: the profiler's kernel
-    time summed over ``calls`` calls, divided by ``calls``.  Unlike the
-    time between two events it leaves out the gaps where the device
-    waits for the host."""
+    time summed over ``calls`` calls, divided by ``calls`` ("device_ms"),
+    and the part of it spent in the kernels whose names hold each of
+    ``names`` ("<name> device_ms").  Unlike the time between two events
+    it leaves out the gaps where the device waits for the host."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -199,8 +250,13 @@ def device_ms(torch, fn, calls: int) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()) \
-        / calls / 1e3
+    events = prof.key_averages()
+    out = {"device_ms": sum(e.device_time_total for e in events)
+           / calls / 1e3}
+    for name in names:
+        out[f"{name} device_ms"] = sum(e.device_time_total for e in events
+                                       if name in e.key) / calls / 1e3
+    return out
 
 
 def norm_passes(torch, c, windows=3, calls=10) -> dict:
@@ -227,7 +283,8 @@ def norm_passes(torch, c, windows=3, calls=10) -> dict:
                     return c._forward_backward(torch, layer, x, g)
 
                 if profiled:
-                    out[f"{key} device"] = device_ms(torch, fn, calls)
+                    out[f"{key} device"] = device_ms(torch, fn,
+                                                     calls)["device_ms"]
                 else:
                     torch.cuda.synchronize()
                     reset_kernel_launches()
@@ -247,9 +304,12 @@ def norm_passes(torch, c, windows=3, calls=10) -> dict:
     return out
 
 
-def pool_step(torch, c, mode: str, warmup=3, iters=10, windows=5) -> dict:
+def pool_step(torch, c, mode, warmup=3, iters=10, windows=5,
+              profiled=0, names=()) -> dict:
     """The bf16 batch-256 Inception-v1 step with every max pool in
-    ``mode`` ("tie" or "argmax"): median ms of ``windows`` windows."""
+    ``mode`` (None, the default path, "tie" or "argmax"): median ms of
+    ``windows`` windows; with ``profiled`` steps, also the device ms of a
+    step and of the kernels ``names`` in it (``device_ms``)."""
     import numpy as np
 
     from bigdl_tpu_torch.models import registry
@@ -278,14 +338,21 @@ def pool_step(torch, c, mode: str, warmup=3, iters=10, windows=5) -> dict:
         step_ms.append(wall / iters * 1e3)
     if not all(math.isfinite(v) for v in losses) \
             or not sum(losses[-3:]) < sum(losses[:3]):
-        raise RuntimeError(f"{mode} losses {losses}")
-    c.expect_launches(kernel_launches(), c.POOL_PER_STEP[mode],
-                      warmup + windows * iters, f"{mode} steps")
+        raise RuntimeError(f"{mode or 'default'} losses {losses}")
+    c.expect_launches(kernel_launches(),
+                      c.PER_STEP if mode is None else c.POOL_PER_STEP[mode],
+                      warmup + windows * iters, f"{mode or 'default'} steps")
     median = sorted(step_ms)[len(step_ms) // 2]
+    out = {"step_ms": median, "records_per_s": c.TRAIN_BATCH / median * 1e3,
+           "window_step_ms": step_ms, "losses": losses}
+    if profiled:
+        def train():
+            step.update(step.grads(step.loss(x, y)))
+
+        out.update(device_ms(torch, train, profiled, names))
     del step, model
     torch.cuda.empty_cache()
-    return {"step_ms": median, "records_per_s": c.TRAIN_BATCH / median * 1e3,
-            "window_step_ms": step_ms, "losses": losses}
+    return out
 
 
 def _checked_imports(root: str):
@@ -326,6 +393,19 @@ def one_norm(root: str) -> dict:
     strict_f32()
     return {"root": root, "norm": norm_rows(torch, c),
             "passes": norm_passes(torch, c)}
+
+
+def one_train(root: str) -> dict:
+    """The default training path's backward kernels and step of one
+    checkout, in this process."""
+    root, torch, c = _checked_imports(root)
+    from bigdl_tpu_torch.device import strict_f32
+
+    strict_f32()
+    return {"root": root, "train": train_rows(torch, c),
+            "steps": {"default": pool_step(
+                torch, c, None, profiled=5,
+                names=("cml_bwd_kernel", "avg_pool_bwd"))}}
 
 
 def one(root: str) -> dict:
@@ -370,14 +450,19 @@ def one(root: str) -> dict:
             "lm_losses": losses}
 
 
-def sass_counts(root: str, out_dir: str, tag: str) -> dict:
-    """Write the SASS of ``root``'s newest built within-channel LRN
-    libraries to ``out_dir`` as ``<tag>.<kernel>.sass`` and count each
-    kernel function's instructions, by opcode for the ones that bound
-    these kernels."""
+#: the libraries whose SASS ``--sass`` writes, by mode
+SASS_LIBRARIES = {"norm": ("wcl_fwd", "wcl_bwd"),
+                  "train": ("lrn_bwd", "avg_pool_bwd")}
+
+
+def sass_counts(root: str, out_dir: str, tag: str, names) -> dict:
+    """Write the SASS of ``root``'s newest built libraries ``names`` to
+    ``out_dir`` as ``<tag>.<kernel>.sass`` and count each kernel
+    function's instructions, by opcode for the ones that bound these
+    kernels."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     counts = {}
-    for name in ("wcl_fwd", "wcl_bwd"):
+    for name in names:
         libs = sorted(glob.glob(os.path.join(
             root, "bigdl_tpu_torch", "build", f"{name}-*.so")),
             key=os.path.getmtime)
@@ -409,6 +494,16 @@ def _summary(mine, mode: str) -> dict:
                    for key in first["sums"]},
                 **{f"{key} pass ms": fmean(m["passes"][key] for m in mine)
                    for key in mine[0]["passes"]}}
+    if mode == "train":
+        default = mine[0]["steps"]["default"]
+        return {"processes": len(mine),
+                **{f"default_step {key}": fmean(
+                    r["steps"]["default"][key] for r in mine)
+                   for key in default if key.endswith("_ms")
+                   and key != "window_step_ms"},
+                **{f"{row['name']} {row['site']} {row['dtype']} ms": fmean(
+                    m["train"]["rows"][i]["ms"] for m in mine)
+                   for i, row in enumerate(mine[0]["train"]["rows"])}}
     if mode == "maxpool":
         sums = mine[0]["maxpool"]["sums"]
         return {"processes": len(mine),
@@ -430,14 +525,15 @@ def _summary(mine, mode: str) -> dict:
 
 def main(argv) -> int:
     if len(argv) == 3 and argv[0] == "--one":
-        run = {"maxpool": one_maxpool, "norm": one_norm}.get(argv[1], one)
+        run = {"maxpool": one_maxpool, "norm": one_norm,
+               "train": one_train}.get(argv[1], one)
         print(json.dumps(run(argv[2])), flush=True)
         return 0
-    mode = argv[0][2:] if argv and argv[0] in ("--maxpool", "--norm") \
-        else "default"
+    mode = argv[0][2:] if argv and argv[0] in ("--maxpool", "--norm",
+                                                "--train") else "default"
     roots = argv if mode == "default" else argv[1:]
     sass_dir = None
-    if mode == "norm" and roots[:1] == ["--sass"]:
+    if mode in SASS_LIBRARIES and roots[:1] == ["--sass"]:
         sass_dir, roots = roots[1], roots[2:]
     if not roots:
         print(__doc__, file=sys.stderr)
@@ -472,7 +568,8 @@ def main(argv) -> int:
     if sass_dir is not None:
         os.makedirs(sass_dir, exist_ok=True)
         print(json.dumps({"sass": {
-            root: sass_counts(root, sass_dir, f"{i}-{os.path.basename(root)}")
+            root: sass_counts(root, sass_dir, f"{i}-{os.path.basename(root)}",
+                              SASS_LIBRARIES[mode])
             for i, root in enumerate(summary)}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"summary": summary}), flush=True)

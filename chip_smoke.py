@@ -99,14 +99,20 @@ beside +0.0 and an inf gradient (checked only); and the forward alone
 on rows too wide for its staged tiles, which take its
 one-thread-per-output kernel (``MAXPOOL_FWD_EDGES``).
 
-It holds the average-pool forward to its plain version bit for bit too,
-in f32 and bf16: at the head shapes (checked and timed) and at edge
-geometries (checked only, normal and special inputs): the aux heads' 5x5
-s3 ceil on [8, 512, 14, 14], the 3x3 s1 p1 branch pool with and without
-``count_include_pad``, the 8x8 head, a plane count that is no multiple
-of the staged kernel's plane group, an input that starts off a 16-byte
-boundary (a contiguous slice of a larger buffer), and a plane too large
-to stage, which takes the one-thread-per-output kernel.
+It holds the average-pool forward and backward to their plain versions
+bit for bit too, in f32 and bf16: at the head shapes (checked and timed)
+and at edge geometries (checked only, normal and special inputs): the
+aux heads' 5x5 s3 ceil on [8, 512, 14, 14], the 3x3 s1 p1 branch pool
+with and without ``count_include_pad``, the 8x8 head, a plane count
+that is no multiple of the staged kernels' plane group, an input (x, or
+the backward's wgt) that starts off a 16-byte boundary (a contiguous
+slice of a larger buffer), and a plane too large to stage, which takes
+the one-thread-an-element kernels.  The cross-map LRN backward is held
+bit for bit at its two training sites (checked and timed) and at
+``LRN_BWD_EDGES`` (checked only, normal and special inputs, three
+(alpha, beta, k)): fewer channels than the band, channel counts no
+multiple of a chunk, bands 1, 3, 7 and 15, 7x7 and 1x1 pixel counts
+and inputs 1 element off 16 bytes (the element-wise kernel).
 
 The kernels phase also holds the within-channel LRN forward (y and
 scale) and backward at the norm phase's two sites, and the smoothing
@@ -367,7 +373,7 @@ def _lrn_bwd_cases(torch):
     return [dict(name="cross_map_lrn_bwd", path="train", site=site,
                  shape=(TRAIN_BATCH, c, 56, 56), make=make, kernel=kernel,
                  plain=plain, library=library, library_inputs=library_inputs,
-                 bound=bound)
+                 bound=bound, exact=True)
             for site, c in LRN_SITES]
 
 
@@ -441,7 +447,7 @@ def _pool_bwd_cases(torch):
 
     return [dict(name="avg_pool_bwd", path="train", site="head 7x7 s1",
                  shape=shape, make=make, kernel=kernel, plain=plain,
-                 library=library, bound=bound)]
+                 library=library, bound=bound, exact=True)]
 
 
 #: the max pools' training sites timed at batch 256: (site, channels,
@@ -974,6 +980,75 @@ def phase_wcl_edges(torch):
           "inputs": "normal, rounded to integers (+0.0 and -0.0)"})
 
 
+#: cross-map LRN backward edge cases (name, shape, band, offset of x,
+#: den and g in elements from a 16-byte boundary), checked only: fewer
+#: channels than the band and than any chunk, channel counts no multiple
+#: of a chunk, the bands whose rings the vector kernel holds for fewer
+#: pixels (7, 15) and the narrowest (1, 3), pixel counts no multiple of
+#: a vector (7x7) and a single pixel, and inputs that start 1 element
+#: off 16 bytes (the last three take the element-wise kernel)
+LRN_BWD_EDGES = (
+    ("c 1", (2, 1, 28, 28), 5, 0),
+    ("c 3, under the band", (2, 3, 28, 28), 5, 0),
+    ("c 17", (2, 17, 28, 28), 5, 0),
+    ("c 50", (2, 50, 28, 28), 5, 0),
+    ("band 1", (2, 20, 16, 16), 1, 0),
+    ("band 3", (2, 33, 16, 16), 3, 0),
+    ("band 7", (2, 40, 24, 24), 7, 0),
+    ("band 15", (2, 70, 16, 16), 15, 0),
+    ("7x7 pixels", (2, 64, 7, 7), 5, 0),
+    ("1x1 pixel", (4, 96, 1, 1), 5, 0),
+    ("1 element off 16 bytes", (2, 64, 56, 56), 5, 1),
+)
+#: (alpha, beta, k) of the edge checks: the training path's, then alpha
+#: 1 so that the band sums move den's low bits, at beta 0.5 (the rsqrt
+#: branch of g * den^-beta) and 1.5
+LRN_BWD_EDGE_HYPERS = ((1e-4, 0.75, 1.0), (1.0, 0.5, 1.0), (1.0, 1.5, 2.0))
+
+
+def phase_lrn_bwd_edges(torch):
+    """The cross-map LRN backward bit-equal to its plain version at
+    ``LRN_BWD_EDGES`` and ``LRN_BWD_EDGE_HYPERS``, in f32 and bf16, on
+    normal inputs and on ``_edge_inputs``' special ones (a -inf block, a
+    NaN and -0.0 beside +0.0 in x; den, from the plain forward, is inf
+    or NaN around them; checked only).  NaNs are held bit for bit too:
+    the card's arithmetic gives one NaN pattern, in the kernel as in the
+    plain version."""
+    from bigdl_tpu_torch.ops import lrn
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    checks = 0
+    for name, shape, size, offset in LRN_BWD_EDGES:
+        inputs = _edge_inputs(torch, gen, shape)
+        g32 = torch.randn(shape, generator=gen, device="cuda")
+        for kind in ("normal", "special"):
+            for dtype in (torch.float32, torch.bfloat16):
+                x, den, g = (torch.empty(offset + math.prod(shape),
+                                         dtype=dtype, device="cuda")
+                             [offset:].view(shape) for _ in range(3))
+                x.copy_(inputs[kind])
+                g.copy_(g32)
+                for alpha, beta, k in LRN_BWD_EDGE_HYPERS:
+                    den.copy_(lrn.cross_map_lrn_plain(x, size, alpha, beta,
+                                                      k)[1])
+                    bit_equal(torch, lrn.cross_map_lrn_backward(
+                        x, den, g, size, alpha, beta),
+                        lrn.cross_map_lrn_backward_plain(
+                            x, den, g, size, alpha, beta),
+                        f"cross_map_lrn_bwd {name} {list(shape)} "
+                        f"size={size} alpha={alpha} beta={beta} {kind} "
+                        f"{str(dtype)[6:]}")
+                    checks += 1
+    torch.cuda.synchronize()
+    emit({"phase": "kernels", "name": "cross_map_lrn_bwd",
+          "checked_only": True,
+          "geometries": [f"{name} {list(shape)} size {size}"
+                         for name, shape, size, _ in LRN_BWD_EDGES],
+          "hyper": [list(h) for h in LRN_BWD_EDGE_HYPERS],
+          "checks": checks, "tolerance": "bit-equal",
+          "inputs": "normal, special (-inf block, NaN, -0.0)"})
+
+
 #: average-pool edge geometries (name, shape, SpatialAveragePooling
 #: arguments, slice offset in elements), checked only
 AVG_POOL_EDGES = (
@@ -996,9 +1071,10 @@ AVG_POOL_EDGES = (
 
 
 def phase_avg_pool_edges(torch):
-    """The average-pool forward bit-equal to its plain version at the
-    edge geometries, in f32 and bf16, on normal and special inputs
-    (checked only)."""
+    """The average-pool forward and backward bit-equal to their plain
+    versions at the edge geometries, in f32 and bf16, on normal and
+    special inputs (the backward's wgt made as the forward's x, at the
+    output's shape and the same offset; checked only)."""
     from bigdl_tpu_torch.nn.layers.pooling import SpatialAveragePooling
     from bigdl_tpu_torch.ops import pool
 
@@ -1012,8 +1088,11 @@ def phase_avg_pool_edges(torch):
         inv = pool._np_inv_counts(shape, dims, strides, pads, declared, cip)
         inv_dev = torch.as_tensor(inv, dtype=torch.float32, device="cuda")
         inputs = _edge_inputs(torch, gen, shape)
+        out_shape = tuple(pool._out_sizes(shape, dims, strides, pads))
+        grads = _edge_inputs(torch, gen, out_shape)
         for kind in ("normal", "special"):
             for dtype in (torch.float32, torch.bfloat16):
+                what = f"{name} {shape} {kind} {str(dtype)[6:]}"
                 buf = torch.empty(offset + math.prod(shape), dtype=dtype,
                                   device="cuda")
                 x = buf[offset:].view(shape)
@@ -1021,10 +1100,20 @@ def phase_avg_pool_edges(torch):
                 bit_equal(torch, pool.avg_pool_forward(
                     x, dims, strides, pads, declared, cip),
                     pool.avg_pool_plain(x, dims, strides, pads, inv_dev),
-                    f"avg_pool_fwd {name} {shape} {kind} {str(dtype)[6:]}")
-                checks += 1
+                    f"avg_pool_fwd {what}")
+                buf = torch.empty(offset + math.prod(out_shape), dtype=dtype,
+                                  device="cuda")
+                wgt = buf[offset:].view(out_shape)
+                wgt.copy_(grads[kind])
+                bit_equal(torch, pool.avg_pool_backward(
+                    wgt, shape, dims, strides, pads, dtype),
+                    pool.avg_pool_backward_plain(
+                        wgt, shape, dims, strides, pads, dtype),
+                    f"avg_pool_bwd {what}")
+                checks += 2
     torch.cuda.synchronize()
-    emit({"phase": "kernels", "name": "avg_pool_fwd", "checked_only": True,
+    emit({"phase": "kernels", "name": "avg_pool", "checked_only": True,
+          "covers": ["avg_pool_fwd", "avg_pool_bwd"],
           "geometries": [name for name, *_ in AVG_POOL_EDGES],
           "checks": checks, "tolerance": "bit-equal",
           "inputs": "normal, special (-inf block, NaN, -0.0)"})
@@ -1999,6 +2088,7 @@ def main() -> int:
     phase_avg_pool_edges(torch)
     phase_smooth_edges(torch)
     phase_wcl_edges(torch)
+    phase_lrn_bwd_edges(torch)
     serve_launches = phase_serve(torch, card)
     default = phase_train(torch, card, root)
     tie_launches, argmax_launches = phase_train_pool(torch, card, root,
