@@ -4,6 +4,7 @@
     python -m bigdl_tpu_torch.models.cli perf --model inception_v1 -b 256
     python -m bigdl_tpu_torch.models.cli perf --model inception_v1 -b 256 \\
         --pool-kernel on
+    python -m bigdl_tpu_torch.models.cli perf --model inception_v2 -b 256
     python -m bigdl_tpu_torch.models.cli perf --model transformer -b 32
     python -m bigdl_tpu_torch.models.cli serve --model inception_v1 \\
         --port 0 -b 8 --buckets 1,2,4,8 --max-wait-ms 2 --bf16
@@ -153,7 +154,9 @@ def _parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="cmd", required=True)
     pf = sub.add_parser("perf", help="synthetic-data throughput harness")
     pf.add_argument("--model", default="inception_v1",
-                    help="inception_v1 (3x224x224 images) or transformer "
+                    help="inception_v1 or inception_v2 (3x224x224 images; "
+                         "v2 is BN-Inception, whose eight average pools "
+                         "run the average-pool kernels) or transformer "
                          "([b, 128] tokens; at 128 tokens its attention "
                          "runs the dense path on the card too, since "
                          "flash starts at 512)")

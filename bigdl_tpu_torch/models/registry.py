@@ -36,6 +36,13 @@ def _inception_v1(num_classes: int = 0,
     return build_inception_v1(num_classes or 1000, generator=generator)
 
 
+def _inception_v2(num_classes: int = 0,
+                  generator: Optional[torch.Generator] = None):
+    from bigdl_tpu_torch.models.inception import build_inception_v2
+
+    return build_inception_v2(num_classes or 1000, generator=generator)
+
+
 def _transformer(num_classes: int = 0,
                  generator: Optional[torch.Generator] = None):
     from bigdl_tpu_torch.models.transformer import build_transformer_lm
@@ -46,6 +53,7 @@ def _transformer(num_classes: int = 0,
 
 MODELS: Dict[str, ModelEntry] = {
     "inception_v1": ModelEntry(_inception_v1, (3, 224, 224), "float32"),
+    "inception_v2": ModelEntry(_inception_v2, (3, 224, 224), "float32"),
     # [batch, 128] int tokens -> per-position log-probs over the vocab
     "transformer": ModelEntry(_transformer, (LM_SEQ_LEN,), "int32"),
 }

@@ -29,14 +29,17 @@ def _pair_padding(pad: int, k: int, stride: int, size: int) -> Tuple[int, int]:
 
 
 class SpatialConvolution(Module):
-    """2-D convolution over NCHW (``nn/SpatialConvolution.scala``)."""
+    """2-D convolution over NCHW (``nn/SpatialConvolution.scala``);
+    ``w_regularizer`` / ``b_regularizer`` are applied by the train
+    step."""
 
     def __init__(self, n_input_plane: int, n_output_plane: int,
                  kernel_w: int, kernel_h: int, stride_w: int = 1,
                  stride_h: int = 1, pad_w: int = 0, pad_h: int = 0,
-                 n_group: int = 1,
+                 n_group: int = 1, w_regularizer=None, b_regularizer=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.w_regularizer, self.b_regularizer = w_regularizer, b_regularizer
         if n_input_plane % n_group or n_output_plane % n_group:
             raise ValueError(f"planes {n_input_plane}->{n_output_plane} "
                              f"not divisible by n_group {n_group}")
@@ -49,9 +52,9 @@ class SpatialConvolution(Module):
         init = RandomUniform()
         self.weight = torch.nn.Parameter(init.init(
             (n_output_plane, n_input_plane // n_group, kernel_h, kernel_w),
-            fan_in, generator))
+            fan_in, generator=generator))
         self.bias = torch.nn.Parameter(init.init(
-            (n_output_plane,), fan_in, generator))
+            (n_output_plane,), fan_in, generator=generator))
 
     def forward(self, x):
         squeeze = x.ndim == 3

@@ -51,7 +51,7 @@ class LookupTable(Module):
         self.one_based = one_based
         self.padding_idx = padding_idx
         self.weight = torch.nn.Parameter(RandomNormal(0.0, 1.0).init(
-            (n_index, n_output), generator))
+            (n_index, n_output), generator=generator))
 
     def _indices(self, x) -> torch.Tensor:
         idx = torch.as_tensor(x, device=self.weight.device)

@@ -15,20 +15,23 @@ __all__ = ["Linear"]
 
 class Linear(Module):
     """y = x W^T + b (``nn/Linear.scala``); weight layout (out, in); no
-    ``bias`` parameter without ``with_bias``."""
+    ``bias`` parameter without ``with_bias``; ``w_regularizer`` /
+    ``b_regularizer`` are applied by the train step."""
 
     def __init__(self, input_size: int, output_size: int,
-                 with_bias: bool = True,
+                 with_bias: bool = True, w_regularizer=None,
+                 b_regularizer=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.w_regularizer, self.b_regularizer = w_regularizer, b_regularizer
         self.input_size, self.output_size = input_size, output_size
         self.with_bias = with_bias
         init = RandomUniform()
         self.weight = torch.nn.Parameter(init.init(
-            (output_size, input_size), input_size, generator))
+            (output_size, input_size), input_size, generator=generator))
         if with_bias:
             self.bias = torch.nn.Parameter(init.init(
-                (output_size,), input_size, generator))
+                (output_size,), input_size, generator=generator))
 
     def forward(self, x):
         squeeze = x.ndim == 1

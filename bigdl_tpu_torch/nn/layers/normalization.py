@@ -1,6 +1,13 @@
-"""Cross-map and within-channel LRN, the subtractive, divisive and
-contrastive normalizations, and dropout, ported from
-``bigdl_tpu/nn/layers/normalization.py``."""
+"""Batch normalization, cross-map and within-channel LRN, the
+subtractive, divisive and contrastive normalizations, and dropout,
+ported from ``bigdl_tpu/nn/layers/normalization.py``.
+
+Batch normalization has no Pallas kernel in the JAX package: its
+training mode is the fused custom VJP ``_bn_train_apply``, which this
+port keeps as a ``torch.autograd.Function`` of plain PyTorch
+(:class:`_BatchNormTrain`).  NCHW only; the NHWC layout is not ported
+yet.
+"""
 
 from __future__ import annotations
 
@@ -15,7 +22,8 @@ from bigdl_tpu_torch.nn.module import Module
 from bigdl_tpu_torch.ops.lrn import cross_map_lrn, within_channel_lrn
 from bigdl_tpu_torch.ops.norm import divisive_norm, subtractive_norm
 
-__all__ = ["SpatialCrossMapLRN", "SpatialWithinChannelLRN",
+__all__ = ["BatchNormalization", "SpatialBatchNormalization",
+           "SpatialCrossMapLRN", "SpatialWithinChannelLRN",
            "SpatialSubtractiveNormalization", "SpatialDivisiveNormalization",
            "SpatialContrastiveNormalization", "Dropout", "dropout_generator"]
 
@@ -35,6 +43,126 @@ def dropout_generator(generator: Optional[torch.Generator]
         yield
     finally:
         _generator = saved
+
+
+def _bn_shape(x: torch.Tensor, axis: int):
+    """(reduced axes, per-feature broadcast shape, reduced count)."""
+    axes = tuple(a for a in range(x.ndim) if a != axis)
+    shape = [1] * x.ndim
+    shape[axis] = x.shape[axis]
+    return axes, shape, x.numel() // max(x.shape[axis], 1)
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """Training batch norm with the JAX package's hand-written VJP
+    (``_bn_train_fwd_impl`` / ``_bn_train_vjp_bwd``): one f32 sum and
+    sum of squares forward, ``var = max(s2/n - mean^2, 0)`` (the biased
+    variance normalizes), ``scale`` and ``shift`` rounded to the input's
+    dtype and ``out = x * scale + shift``; backward, ``dbeta`` and
+    ``dgamma`` summed in f32 and the fused ``dx`` formula.  Returns
+    ``(out, mean, var)``, the statistics in f32 and without gradient
+    (they only feed the running buffers)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, axis: int, eps: float):
+        axes, shape, n = _bn_shape(x, axis)
+        xf = x.float()
+        s1 = torch.sum(x, dim=axes, dtype=torch.float32)
+        s2 = torch.sum(xf * xf, dim=axes)
+        mean = s1 / n
+        var = torch.clamp(s2 / n - mean * mean, min=0.0)
+        inv = torch.rsqrt(var + eps)
+        scale = (inv * weight).reshape(shape).to(x.dtype)
+        shift = (bias - mean * inv * weight).reshape(shape).to(x.dtype)
+        ctx.save_for_backward(x, weight, mean, inv)
+        ctx.axis = axis
+        ctx.mark_non_differentiable(mean, var)
+        return x * scale + shift, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, weight, mean, inv = ctx.saved_tensors
+        axes, shape, n = _bn_shape(x, ctx.axis)
+        gy32 = gy.float()
+        xhat32 = (x.float() - mean.reshape(shape)) * inv.reshape(shape)
+        dbeta = torch.sum(gy32, dim=axes)
+        dgamma = torch.sum(gy32 * xhat32, dim=axes)
+        k = (weight * inv).reshape(shape)
+        dx = (k * (gy32 - (dbeta / n).reshape(shape)
+                   - xhat32 * (dgamma / n).reshape(shape))).to(x.dtype)
+        return dx, dgamma.to(weight.dtype), dbeta.to(weight.dtype), None, None
+
+
+class BatchNormalization(Module):
+    """Batch norm over [batch, feature] (``nn/BatchNormalization.scala``)
+    and, through :class:`SpatialBatchNormalization`, over NCHW.
+
+    Parameters ``weight`` and ``bias`` (with ``affine``) and f32 buffers
+    ``running_mean`` and ``running_var``, under the JAX package's keys.
+    Training mode normalizes with the batch statistics and moves the
+    running buffers by ``momentum`` toward the mean and the unbiased
+    variance, in f32 whatever the input's dtype; evaluation mode
+    normalizes with the running buffers."""
+
+    _feature_axis = 1
+
+    def __init__(self, n_output: int, eps: float = 1e-5,
+                 momentum: float = 0.1, affine: bool = True,
+                 init_weight=None, init_bias=None):
+        super().__init__()
+        self.n_output, self.eps = n_output, eps
+        self.momentum, self.affine = momentum, affine
+        if affine:
+            self.weight = torch.nn.Parameter(
+                torch.as_tensor(init_weight, dtype=torch.float32).clone()
+                if init_weight is not None
+                else torch.ones(n_output, dtype=torch.float32))
+            self.bias = torch.nn.Parameter(
+                torch.as_tensor(init_bias, dtype=torch.float32).clone()
+                if init_bias is not None
+                else torch.zeros(n_output, dtype=torch.float32))
+        self.register_buffer("running_mean",
+                             torch.zeros(n_output, dtype=torch.float32))
+        self.register_buffer("running_var",
+                             torch.ones(n_output, dtype=torch.float32))
+
+    def forward(self, x):
+        axis = self._feature_axis
+        shape = [1] * x.ndim
+        shape[axis] = self.n_output
+        if self.training:
+            ones = x.new_ones(self.n_output, dtype=torch.float32)
+            w = self.weight if self.affine else ones
+            b = self.bias if self.affine else torch.zeros_like(ones)
+            out, mean, var = _BatchNormTrain.apply(x, w, b, axis, self.eps)
+            n = x.numel() // self.n_output
+            unbiased = var * n / max(n - 1, 1)
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_(
+                    (1 - m) * self.running_mean + m * mean)
+                self.running_var.copy_(
+                    (1 - m) * self.running_var + m * unbiased)
+            return out
+        inv = torch.rsqrt(self.running_var + self.eps).reshape(shape)
+        out = (x - self.running_mean.reshape(shape)) * inv
+        if self.affine:
+            out = out * self.weight.reshape(shape) \
+                + self.bias.reshape(shape)
+        return out.to(x.dtype)
+
+
+class SpatialBatchNormalization(BatchNormalization):
+    """Batch norm over [batch, C, H, W]
+    (``nn/SpatialBatchNormalization.scala``), NCHW only."""
+
+    def __init__(self, n_output: int, eps: float = 1e-5,
+                 momentum: float = 0.1, affine: bool = True,
+                 init_weight=None, init_bias=None, format: str = "NCHW"):
+        if format != "NCHW":
+            raise NotImplementedError("the port's batch norm is NCHW only")
+        super().__init__(n_output, eps, momentum, affine, init_weight,
+                         init_bias)
 
 
 class SpatialCrossMapLRN(Module):

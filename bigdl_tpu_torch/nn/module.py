@@ -6,16 +6,21 @@ and ``Container.add`` registering children under ``"0"``, ``"1"``, ...
 so that ``state_dict`` keys equal the JAX package's (``0.0.weight``,
 ``0.4.bias``) and weights cross by key.  ``backward`` comes from
 autograd, as the JAX package derives it from ``jax.vjp``.
+
+``freeze``/``unfreeze`` and the per-module gradient scales ``scale_w``
+and ``scale_b`` (``bigdl_tpu/nn/module.py:87-90, 372-391``) are read by
+the train step through :func:`param_meta`, with each layer's
+``w_regularizer`` / ``b_regularizer``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
 __all__ = ["Module", "Container", "Sequential", "state_dict",
-           "parameters", "load_state_dict"]
+           "parameters", "load_state_dict", "param_meta"]
 
 
 class Module(torch.nn.Module):
@@ -24,6 +29,9 @@ class Module(torch.nn.Module):
     def __init__(self):
         super().__init__()
         self._bigdl_name = None
+        self._frozen = False
+        self.scale_w = 1.0
+        self.scale_b = 1.0
 
     def set_name(self, name: str) -> "Module":
         self._bigdl_name = name
@@ -34,6 +42,31 @@ class Module(torch.nn.Module):
 
     def evaluate(self) -> "Module":
         return self.train(False)
+
+    def freeze(self) -> "Module":
+        """Freeze this module and every module under it: the train step
+        zeroes their gradients and skips their regularizers."""
+        for m in self.modules():
+            m._frozen = True
+        return self
+
+    def unfreeze(self) -> "Module":
+        for m in self.modules():
+            m._frozen = False
+        return self
+
+    def is_frozen(self) -> bool:
+        return self._frozen
+
+    def set_scale_w(self, s: float) -> "Module":
+        """Multiply this module's weight gradients by ``s`` (the train
+        step's scale leg)."""
+        self.scale_w = s
+        return self
+
+    def set_scale_b(self, s: float) -> "Module":
+        self.scale_b = s
+        return self
 
 
 class Container(Module):
@@ -72,6 +105,28 @@ def parameters(module: torch.nn.Module) -> Dict[str, torch.nn.Parameter]:
     key order (the JAX package's ``state_dict(model, kind="param")``)."""
     own = dict(module.named_parameters())
     return {k: own[k] for k in module.state_dict(keep_vars=True) if k in own}
+
+
+def param_meta(module: torch.nn.Module) -> Dict[str, Tuple[float, bool, Any]]:
+    """``{path: (scale, frozen, regularizer)}`` of every parameter, in
+    :func:`parameters` order (``_param_meta`` of
+    ``bigdl_tpu/parallel/train_step.py:88-100``): a ``bias`` takes its
+    module's ``scale_b`` and ``b_regularizer``, every other parameter
+    ``scale_w`` and ``w_regularizer``; a disabled regularizer is None.
+    Modules from outside the port count as scale 1, unfrozen and
+    unregularized."""
+    meta = {}
+    for path in parameters(module):
+        mod_path, _, leaf = path.rpartition(".")
+        mod = module.get_submodule(mod_path)
+        bias = leaf == "bias"
+        scale = getattr(mod, "scale_b" if bias else "scale_w", 1.0)
+        reg = getattr(mod, "b_regularizer" if bias else "w_regularizer",
+                      None)
+        if reg is not None and not getattr(reg, "is_enabled", True):
+            reg = None
+        meta[path] = (scale, getattr(mod, "_frozen", False), reg)
+    return meta
 
 
 def load_state_dict(module: torch.nn.Module, state: Dict[str, Any],

@@ -1,3 +1,6 @@
-"""bigdl_tpu_torch.parallel — the training step (one device so far)."""
+"""bigdl_tpu_torch.parallel — the training and evaluation steps (one
+device so far)."""
 
-from bigdl_tpu_torch.parallel.train_step import TrainStep  # noqa: F401
+from bigdl_tpu_torch.parallel.train_step import (  # noqa: F401
+    EvalStep, TrainStep, bf16_truncate,
+)

@@ -73,7 +73,11 @@ default step (bf16, batch 256, ``cli perf``'s model, seeds and batch): 3
 warm-up steps and five windows of 10 steps, finite losses that fall,
 2/2/1/1 LRN and average-pool launches a step, the median window's ms;
 then five more steps under ``torch.profiler``: a step's device ms, in
-all and in the two backward kernels.
+all and in the two backward kernels; then the median host-clock
+forward, backward and optimizer ms (synchronised around each) of the
+Inception-v1 step (``chip_smoke._train_breakdown``) and of the
+``transformer_lm`` step (``chip_smoke._lm_breakdown``), the optimizer's
+ms being the update of the f32 masters by SGD with momentum.
 
     python3 chip_ab.py --norm --sass DIR OLD_ROOT NEW_ROOT NEW_ROOT OLD_ROOT
     python3 chip_ab.py --train --sass DIR OLD_ROOT NEW_ROOT NEW_ROOT OLD_ROOT
@@ -397,15 +401,24 @@ def one_norm(root: str) -> dict:
 
 def one_train(root: str) -> dict:
     """The default training path's backward kernels and step of one
-    checkout, in this process."""
+    checkout, and the forward/backward/optimizer breakdown of the
+    Inception-v1 and ``transformer_lm`` steps, in this process."""
     root, torch, c = _checked_imports(root)
+    from bigdl_tpu_torch.bench_configs import make_step
     from bigdl_tpu_torch.device import strict_f32
 
     strict_f32()
-    return {"root": root, "train": train_rows(torch, c),
-            "steps": {"default": pool_step(
-                torch, c, None, profiled=5,
-                names=("cml_bwd_kernel", "avg_pool_bwd"))}}
+    out = {"root": root, "train": train_rows(torch, c),
+           "steps": {"default": pool_step(
+               torch, c, None, profiled=5,
+               names=("cml_bwd_kernel", "avg_pool_bwd"))}}
+    breakdown = {"inception_v1": c._train_breakdown(torch)}
+    torch.cuda.empty_cache()
+    breakdown["transformer_lm"] = c._lm_breakdown(
+        torch, *make_step("transformer_lm"))
+    torch.cuda.empty_cache()
+    out["breakdown"] = breakdown
+    return out
 
 
 def one(root: str) -> dict:
@@ -503,7 +516,11 @@ def _summary(mine, mode: str) -> dict:
                    and key != "window_step_ms"},
                 **{f"{row['name']} {row['site']} {row['dtype']} ms": fmean(
                     m["train"]["rows"][i]["ms"] for m in mine)
-                   for i, row in enumerate(mine[0]["train"]["rows"])}}
+                   for i, row in enumerate(mine[0]["train"]["rows"])},
+                **{f"{model} {key}": fmean(m["breakdown"][model][key]
+                                           for m in mine)
+                   for model in mine[0]["breakdown"]
+                   for key in mine[0]["breakdown"][model]}}
     if mode == "maxpool":
         sums = mine[0]["maxpool"]["sums"]
         return {"processes": len(mine),

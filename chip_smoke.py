@@ -48,6 +48,9 @@ line per phase; any failure ends it with a non-zero exit and no result:
               of the flash forward, dq and dkv kernels.  (c) forward,
               backward and optimizer ms.  (d) the same step with dense
               attention, records/s, for re-picking ``flash_min_seq``.
+              (e) six ``Adam`` steps of the same step: finite losses
+              that fall, 6/6/6 flash launches each, and their
+              breakdown.
 6. train_pool -- the Inception-v1 step with its 13 max pools in each
               kernel mode.  (a) one full-width step (no dropout, batch 8,
               deterministic cuDNN) through the kernels against the same
@@ -65,7 +68,34 @@ line per phase; any failure ends it with a non-zero exit and no result:
               ``maxpool_tie_bwd`` or ``maxpool_argmax_bwd``) beside
               2/2/1/1 of the LRN and average-pool kernels; records/s,
               step ms and peak memory beside the default step's.
-7. norm    -- the within-channel LRN and the subtractive, divisive and
+7. train_v2 -- Inception-v2 (BN-Inception, 1000 classes, 3x224x224;
+              run between train_pool and train_lm).  (a) both
+              average-pool kernels bit-equal to their plain versions at
+              its eight geometries (3x3 s1 p1 ceil at 28x28, 14x14 and
+              7x7, and the 7x7 head; batch 16, f32 and bf16, normal and
+              special inputs).  (b) one f32 SGD step at batch 8 through
+              the kernels against the same step through the plain
+              versions: loss to 1e-5 relative, parameters and batch-norm
+              buffers to 1e-4.  (c) the main path: ``python -m
+              bigdl_tpu_torch.models.cli perf --model inception_v2 -b
+              256`` in a subprocess: finite losses that fall, exactly 8
+              average-pool forward and 8 backward launches a step and no
+              other kernel, records/s, step ms and peak memory.  (d)
+              forward, backward and optimizer ms at batch 256, then
+              three steps under ``torch.profiler``: device ms a step,
+              the device's idle share, and device ms by class of
+              kernel (convolution, the average-pool kernels, the
+              default max pool, the elementwise and reduction work of
+              batch norm and the rest).
+8. step_options -- (after train_lm) the train step's options on a small
+              batch-norm model: ``Adam``, bf16 compute, a per-layer
+              scale and regularizer, bf16 gradient compression,
+              clipping, ``max_norm``, the health probe and
+              ``skip_nonfinite``, every step under CUDA's sync debug mode
+              set to raise on a host synchronisation; five finite steps
+              whose loss falls, then a NaN input that leaves parameters,
+              optimizer state and batch-norm buffers bit-equal.
+9. norm    -- the within-channel LRN and the subtractive, divisive and
               contrastive normalizations, none of which a registered
               model uses, where the JAX package's kernel bench puts them
               (bench_kernels.py:48-52): ``SpatialWithinChannelLRN(5,
@@ -100,8 +130,11 @@ on rows too wide for its staged tiles, which take its
 one-thread-per-output kernel (``MAXPOOL_FWD_EDGES``).
 
 It holds the average-pool forward and backward to their plain versions
-bit for bit too, in f32 and bf16: at the head shapes (checked and timed)
-and at edge geometries (checked only, normal and special inputs): the
+bit for bit too: at Inception-v2's eight sites at batch 256 in bf16
+(checked and timed beside ``F.avg_pool2d`` and
+``aten.avg_pool2d_backward``), and in f32 and bf16 at the head shapes
+(checked and timed) and at edge geometries (checked only, normal and
+special inputs): the
 aux heads' 5x5 s3 ceil on [8, 512, 14, 14], the 3x3 s1 p1 branch pool
 with and without ``count_include_pad``, the 8x8 head, a plane count
 that is no multiple of the staged kernels' plane group, an input (x, or
@@ -192,6 +225,25 @@ PER_STEP = {"cross_map_lrn_fwd": 2, "cross_map_lrn_bwd": 2,
 POOL_PER_STEP = {
     "tie": {**PER_STEP, "maxpool_fwd": 13, "maxpool_tie_bwd": 13},
     "argmax": {**PER_STEP, "maxpool_fwd": 13, "maxpool_argmax_bwd": 13}}
+#: Inception-v2's eight average pools (``inception.py:186-199``): (site,
+#: channels, extent, ``SpatialAveragePooling`` arguments); 3x3 s1 p1 ceil
+#: in the blocks 3a-5a, then the 7x7 head
+_V2_BRANCH_POOL = dict(kw=3, kh=3, dw=1, dh=1, pad_w=1, pad_h=1,
+                       ceil_mode=True)
+V2_AVG_POOLS = (
+    ("inception_3a pool", 192, 28, _V2_BRANCH_POOL),
+    ("inception_3b pool", 256, 28, _V2_BRANCH_POOL),
+    ("inception_4a pool", 576, 14, _V2_BRANCH_POOL),
+    ("inception_4b pool", 576, 14, _V2_BRANCH_POOL),
+    ("inception_4c pool", 576, 14, _V2_BRANCH_POOL),
+    ("inception_4d pool", 576, 14, _V2_BRANCH_POOL),
+    ("inception_5a pool", 1024, 7, _V2_BRANCH_POOL),
+    ("head", 1024, 7, dict(kw=7, kh=7, dw=1, dh=1)))
+V2_BATCH = 256
+#: kernel launches of one Inception-v2 train step: each average pool's
+#: forward and backward once (its max pools take the default path)
+V2_PER_STEP = {"avg_pool_fwd": len(V2_AVG_POOLS),
+               "avg_pool_bwd": len(V2_AVG_POOLS)}
 LM_BATCH = 32
 LM_LAYERS = 6
 #: kernel launches of one transformer_lm train step: one per layer each
@@ -450,6 +502,69 @@ def _pool_bwd_cases(torch):
                  library=library, bound=bound, exact=True)]
 
 
+def _v2_pool_cases(torch):
+    """Both average-pool kernels at Inception-v2's eight sites, batch
+    ``V2_BATCH``, bf16 (the path's dtype; checked bit for bit and timed
+    beside ``F.avg_pool2d`` and ``aten.avg_pool2d_backward``)."""
+    from bigdl_tpu_torch.nn.layers.pooling import SpatialAveragePooling
+    from bigdl_tpu_torch.ops import pool
+
+    cases = []
+    for site, c, e, layer_args in V2_AVG_POOLS:
+        shape = (V2_BATCH, c, e, e)
+        layer = SpatialAveragePooling(**layer_args)
+        k, s, pad = layer.kw, layer.dw, layer.pad_w
+        dims, strides, pads, declared = layer._window(
+            torch.empty(shape, device="meta"))
+        inv = torch.as_tensor(pool._np_inv_counts(
+            shape, dims, strides, pads, declared, True),
+            dtype=torch.float32, device="cuda")
+        out_shape = tuple(pool._out_sizes(shape, dims, strides, pads))
+        ceil = layer.ceil_mode
+
+        def fwd_make(gen, shape, dtype):
+            return (torch.randn(shape, generator=gen, device="cuda")
+                    .to(dtype),)
+
+        def fwd_bound(x, out=math.prod(out_shape), k=k):
+            return (x.numel() + out) * x.element_size(), out * (k * k + 1)
+
+        def bwd_make(gen, shape, dtype, out_shape=out_shape):
+            wgt = torch.randn(out_shape, generator=gen, device="cuda") \
+                .to(dtype)
+            return wgt, torch.empty(shape, dtype=dtype, device="cuda")
+
+        def bwd_bound(wgt, x, k=k):
+            return ((wgt.numel() + x.numel()) * wgt.element_size(),
+                    wgt.numel() * k * k)
+
+        geom = (dims, strides, pads)
+        common = dict(path="train_v2", site=f"{site} {k}x{k} s{s} p{pad}",
+                      shape=shape, exact=True, dtypes=(torch.bfloat16,))
+        cases.append(dict(
+            name="avg_pool_fwd", make=fwd_make, bound=fwd_bound,
+            kernel=lambda x, g=geom, d=declared: pool.avg_pool_forward(
+                x, *g, d, True),
+            plain=lambda x, g=geom, inv=inv: pool.avg_pool_plain(
+                x, *g, inv),
+            library=lambda x, k=k, s=s, pad=pad, ceil=ceil:
+                torch.nn.functional.avg_pool2d(x, k, s, pad, ceil_mode=ceil,
+                                               count_include_pad=True),
+            **common))
+        cases.append(dict(
+            name="avg_pool_bwd", make=bwd_make, bound=bwd_bound,
+            kernel=lambda wgt, x, g=geom: pool.avg_pool_backward(
+                wgt, x.shape, *g, wgt.dtype),
+            plain=lambda wgt, x, g=geom: pool.avg_pool_backward_plain(
+                wgt, x.shape, *g, wgt.dtype),
+            # the same map from gy = count * wgt: aten divides by it
+            library=lambda wgt, x, k=k, s=s, pad=pad, ceil=ceil:
+                torch.ops.aten.avg_pool2d_backward(
+                    wgt, x, [k, k], [s, s], [pad, pad], ceil, True, None),
+            **common))
+    return cases
+
+
 #: the max pools' training sites timed at batch 256: (site, channels,
 #: extent, stride, pad) of pool1, the inception_3b pool branch and pool4
 MAXPOOL_SITES = (("pool1", 64, 112, 2, 0), ("inception_3b pool", 256, 28, 1, 1),
@@ -704,7 +819,7 @@ def phase_kernels(torch):
              + _pool_cases(torch, "train", TRAIN_BATCH)
              + _lrn_bwd_cases(torch) + _pool_bwd_cases(torch)
              + _maxpool_cases(torch) + _wcl_cases(torch)
-             + _smooth_cases(torch))
+             + _smooth_cases(torch) + _v2_pool_cases(torch))
     tols = {torch.float32: dict(rtol=1e-5, atol=1e-6),
             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
     for case in cases:
@@ -1070,17 +1185,24 @@ AVG_POOL_EDGES = (
 )
 
 
-def phase_avg_pool_edges(torch):
+#: Inception-v2's eight average-pool geometries at batch 16, in the form
+#: of ``AVG_POOL_EDGES``
+V2_AVG_POOL_GEOMETRIES = tuple((site, (16, c, e, e), layer_args, 0)
+                               for site, c, e, layer_args in V2_AVG_POOLS)
+
+
+def avg_pool_checks(torch, geometries) -> int:
     """The average-pool forward and backward bit-equal to their plain
-    versions at the edge geometries, in f32 and bf16, on normal and
-    special inputs (the backward's wgt made as the forward's x, at the
-    output's shape and the same offset; checked only)."""
+    versions at ``geometries`` (``AVG_POOL_EDGES`` form), in f32 and
+    bf16, on normal and special inputs (the backward's wgt made as the
+    forward's x, at the output's shape and the same offset); returns
+    the number of checks."""
     from bigdl_tpu_torch.nn.layers.pooling import SpatialAveragePooling
     from bigdl_tpu_torch.ops import pool
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     checks = 0
-    for name, shape, layer_args, offset in AVG_POOL_EDGES:
+    for name, shape, layer_args, offset in geometries:
         layer = SpatialAveragePooling(**layer_args)
         dims, strides, pads, declared = layer._window(
             torch.empty(shape, device="meta"))
@@ -1112,6 +1234,13 @@ def phase_avg_pool_edges(torch):
                     f"avg_pool_bwd {what}")
                 checks += 2
     torch.cuda.synchronize()
+    return checks
+
+
+def phase_avg_pool_edges(torch):
+    """The average-pool kernels bit-equal at ``AVG_POOL_EDGES``
+    (checked only)."""
+    checks = avg_pool_checks(torch, AVG_POOL_EDGES)
     emit({"phase": "kernels", "name": "avg_pool", "checked_only": True,
           "covers": ["avg_pool_fwd", "avg_pool_bwd"],
           "geometries": [name for name, *_ in AVG_POOL_EDGES],
@@ -1608,21 +1737,29 @@ def set_pool_mode(model, mode):
     return pools
 
 
-def _train_parity(torch, mode=None, compute_dtype=None):
-    """(a) One SGD step of full-width Inception-v1 with its max pools in
-    ``mode`` through the kernels against the same step through their
-    plain versions."""
+def _train_parity(torch, mode=None, compute_dtype=None,
+                  model_name="inception_v1"):
+    """(a) One SGD step of full-width Inception-v1 (no dropout) with its
+    max pools in ``mode``, or of Inception-v2, through the kernels
+    against the same step through their plain versions (parameters and
+    batch-norm buffers compared)."""
     import copy
 
-    from bigdl_tpu_torch.models.inception import build_inception_v1
+    from bigdl_tpu_torch.models.inception import (build_inception_v1,
+                                                  build_inception_v2)
     from bigdl_tpu_torch.nn.criterion import ClassNLLCriterion
     from bigdl_tpu_torch.ops import kernel_launches, reset_kernel_launches
     from bigdl_tpu_torch.optim import SGD
     from bigdl_tpu_torch.parallel import TrainStep
 
     torch.backends.cudnn.deterministic = True
-    model = build_inception_v1(
-        1000, has_dropout=False, generator=torch.Generator().manual_seed(SEED))
+    gen = torch.Generator().manual_seed(SEED)
+    if model_name == "inception_v2":
+        model = build_inception_v2(1000, generator=gen)
+        per_step = V2_PER_STEP
+    else:
+        model = build_inception_v1(1000, has_dropout=False, generator=gen)
+        per_step = POOL_PER_STEP[mode] if mode else PER_STEP
     set_pool_mode(model, mode)
     rng = np.random.default_rng(SEED)
     x = torch.from_numpy(rng.normal(size=(BATCH, 3, 224, 224))
@@ -1639,8 +1776,9 @@ def _train_parity(torch, mode=None, compute_dtype=None):
     reset_kernel_launches()
     loss = run.run(x, y)
     launches = kernel_launches()
-    expect_launches(launches, POOL_PER_STEP[mode] if mode else PER_STEP, 1,
-                    f"one train step ({mode or 'default'} max pools)")
+    expect_launches(launches, per_step, 1,
+                    f"one {model_name} train step ({mode or 'default'} "
+                    f"max pools)")
     with plain_versions(torch):
         want = ref.run(x, y)
     if kernel_launches() != launches:
@@ -1649,21 +1787,26 @@ def _train_parity(torch, mode=None, compute_dtype=None):
     if not (math.isfinite(loss) and abs(loss - want) <= 1e-5 * abs(want)):
         raise RuntimeError(f"step loss {loss} against plain {want}")
     max_err = 0.0
-    for k, p in run.params.items():
-        torch.testing.assert_close(p, ref.params[k], rtol=1e-4, atol=1e-6)
-        max_err = max(max_err, (p - ref.params[k]).abs().max().item())
-    return {"batch": BATCH, "dtype": str(compute_dtype or torch.float32)[6:],
+    for k, p in {**run.params, **run.buffers}.items():
+        want_p = {**ref.params, **ref.buffers}[k]
+        torch.testing.assert_close(p, want_p, rtol=1e-4, atol=1e-6)
+        max_err = max(max_err, (p - want_p).abs().max().item())
+    return {"model": model_name, "batch": BATCH,
+            "dtype": str(compute_dtype or torch.float32)[6:],
             "pool_mode": mode or "default", "loss": loss,
             "loss_plain": want, "param_max_abs_err": max_err,
             "launches": launches}
 
 
-def _train_main_path(root: str, pool_kernel: str = "off"):
-    """(b) ``cli perf`` at batch 256 in a subprocess: its JSON report and
-    its records/sec line."""
+def _train_main_path(root: str, pool_kernel: str = "off",
+                     model_name: str = "inception_v1",
+                     batch: int = TRAIN_BATCH, per_step=None):
+    """(b) ``cli perf`` at ``batch`` in a subprocess: its JSON report and
+    its records/sec line, the launches checked against ``per_step`` (by
+    default Inception-v1's in the ``pool_kernel`` mode)."""
     warmup, iters = 3, 10
     cmd = [sys.executable, "-m", "bigdl_tpu_torch.models.cli", "perf",
-           "--model", "inception_v1", "-b", str(TRAIN_BATCH),
+           "--model", model_name, "-b", str(batch),
            "--warmup", str(warmup), "-i", str(iters),
            "--pool-kernel", pool_kernel]
     env = dict(os.environ, PYTHONPATH=root)
@@ -1675,7 +1818,7 @@ def _train_main_path(root: str, pool_kernel: str = "off"):
     lines = out.stdout.strip().splitlines()
     report = json.loads(lines[-2])
     last = lines[-1]
-    if not last.startswith("inception_v1: ") or "records/sec" not in last:
+    if not last.startswith(f"{model_name}: ") or "records/sec" not in last:
         raise RuntimeError(f"unexpected last line {last!r}")
     losses = report["losses"]
     steps = warmup + iters
@@ -1685,29 +1828,77 @@ def _train_main_path(root: str, pool_kernel: str = "off"):
     if not tail < first:
         raise RuntimeError(f"the loss did not fall on the fixed batch: "
                            f"{losses}")
-    per_step = POOL_PER_STEP["argmax"] if pool_kernel == "on" else PER_STEP
+    if per_step is None:
+        per_step = POOL_PER_STEP["argmax"] if pool_kernel == "on" \
+            else PER_STEP
     expect_launches(report["launches"], per_step, steps,
-                    f"{steps} steps (--pool-kernel {pool_kernel})")
+                    f"{steps} {model_name} steps (--pool-kernel "
+                    f"{pool_kernel})")
     report["records_per_s"] = float(last.split()[1])
     report["last_line"] = last
     return report
 
 
-def _train_breakdown(torch, steps: int = 5):
+#: kernel-name fragments of the classes of device work in a profiled
+#: step, matched in order; every other kernel is elementwise work,
+#: reductions or copies (batch norm, ReLU, concatenation, casts, the
+#: optimizer)
+DEVICE_CLASSES = (
+    ("convolution", ("cudnn", "xmma", "cutlass", "gemm", "conv")),
+    ("average-pool kernels", ("avg_pool_",)),
+    ("default max pool", ("max_pool",)))
+
+
+def device_split(torch, train, steps: int = 3) -> dict:
+    """The wall ms a ``train()`` call over ``steps`` calls (synchronised
+    at the window's ends, no profiler), then the device ms a call
+    (kernel time summed) over ``steps`` more under ``torch.profiler``
+    (CUDA activity only), the device's idle share of the wall time, and
+    the device ms a call by ``DEVICE_CLASSES``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        train()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / steps * 1e3
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            train()
+        torch.cuda.synchronize()
+    split = {name: 0.0 for name, _ in DEVICE_CLASSES}
+    split["elementwise, reductions, copies"] = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.device_time_total / 1e3 / steps
+        cls = next((name for name, frags in DEVICE_CLASSES
+                    if any(f in e.key for f in frags)),
+                   "elementwise, reductions, copies")
+        split[cls] += ms
+    device = sum(split.values())
+    return {"wall_ms": wall, "device_ms": device,
+            "idle_share": 1.0 - device / wall, "device_ms_by_class": split}
+
+
+def _train_breakdown(torch, steps: int = 5,
+                     model_name: str = "inception_v1",
+                     batch: int = TRAIN_BATCH, profiled: int = 0):
     """(c) Median host-clock milliseconds (synchronised) of the forward
     with the loss, the backward, and the optimizer update of one bf16
-    step at batch 256, dropout on, as ``cli perf`` builds it."""
+    step at ``batch``, dropout on, as ``cli perf`` builds it; with
+    ``profiled`` steps, also their :func:`device_split` (``device``)."""
     from bigdl_tpu_torch.models import registry
     from bigdl_tpu_torch.nn.criterion import ClassNLLCriterion
     from bigdl_tpu_torch.optim import SGD
     from bigdl_tpu_torch.parallel import TrainStep
 
-    model = registry.build_model("inception_v1", 1000,
+    model = registry.build_model(model_name, 1000,
                                  generator=torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)
-    x = torch.from_numpy(rng.normal(size=(TRAIN_BATCH, 3, 224, 224))
+    x = torch.from_numpy(rng.normal(size=(batch, 3, 224, 224))
                          .astype(np.float32)).cuda()
-    y = torch.from_numpy(rng.integers(0, 1000, TRAIN_BATCH)).cuda()
+    y = torch.from_numpy(rng.integers(0, 1000, batch)).cuda()
     step = TrainStep(model, ClassNLLCriterion(),
                      SGD(learning_rate=0.01, momentum=0.9),
                      compute_dtype=torch.bfloat16, device="cuda")
@@ -1729,7 +1920,12 @@ def _train_breakdown(torch, steps: int = 5):
             for k, v in (("forward_ms", t1 - t0), ("backward_ms", t2 - t1),
                          ("optimizer_ms", t3 - t2), ("step_ms", t3 - t0)):
                 times[k].append(v * 1e3)
-    return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    out = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    if profiled:
+        out["device"] = device_split(
+            torch, lambda: step.update(step.grads(step.loss(x, y))),
+            profiled)
+    return out
 
 
 def phase_train(torch, card: str, root: str):
@@ -1815,6 +2011,116 @@ def phase_train_pool(torch, card: str, root: str, default: dict):
            "default": {k: default[k] for k in keys}, "card": card}
     emit(row)
     return tie["launches"], argmax["launches"]
+
+
+def phase_train_v2(torch, card: str, root: str):
+    """Inception-v2 (batch norm): the average-pool kernels bit-equal at
+    its eight geometries, one f32 step against the plain versions, the
+    ``cli perf`` main path at batch ``V2_BATCH`` and its breakdown."""
+    checks = avg_pool_checks(torch, V2_AVG_POOL_GEOMETRIES)
+    parity = _train_parity(torch, model_name="inception_v2")
+    torch.cuda.empty_cache()
+    report = _train_main_path(root, model_name="inception_v2",
+                              batch=V2_BATCH, per_step=V2_PER_STEP)
+    breakdown = _train_breakdown(torch, model_name="inception_v2",
+                                 batch=V2_BATCH, profiled=3)
+    torch.cuda.empty_cache()
+    emit({"phase": "train_v2", "ok": True, "model": "inception_v2",
+          "avg_pool_checks": {"geometries": [g[0] for g in
+                                             V2_AVG_POOL_GEOMETRIES],
+                              "checks": checks, "tolerance": "bit-equal",
+                              "inputs": "normal, special (-inf block, "
+                                        "NaN, -0.0)"},
+          "parity": parity, "batch": V2_BATCH, "compute": "bf16",
+          "losses": report["losses"], "launches": report["launches"],
+          "launches_per_step": V2_PER_STEP,
+          "records_per_s": report["records_per_s"],
+          "step_ms": report["step_ms"],
+          "max_memory_allocated": report["max_memory_allocated"],
+          "breakdown_ms": breakdown, "last_line": report["last_line"],
+          "card": card})
+    return report
+
+
+def phase_step_options(torch, card: str):
+    """The train step's options on the card: ``Adam``, bf16 compute,
+    per-layer scale and regularizer, bf16 gradient compression, value
+    clipping, ``max_norm``, the health probe and ``skip_nonfinite`` on a
+    small batch-norm model, every step run with CUDA's sync debug mode
+    set to raise on a host synchronisation.  Finite steps: finite losses
+    that fall and a health vector with no non-finite count; then a NaN
+    input, which must leave the parameters, the optimizer state (its
+    device counters too) and the batch-norm buffers bit-equal."""
+    from bigdl_tpu_torch import nn
+    from bigdl_tpu_torch.optim import Adam, L1L2Regularizer
+    from bigdl_tpu_torch.parallel import TrainStep
+
+    gen = torch.Generator().manual_seed(SEED)
+    model = nn.Sequential(
+        nn.Linear(256, 512, w_regularizer=L1L2Regularizer(1e-5, 1e-4),
+                  generator=gen),
+        nn.ReLU(), nn.BatchNormalization(512),
+        nn.Linear(512, 10, generator=gen).set_scale_w(0.5),
+        nn.LogSoftMax())
+    step = TrainStep(model, nn.ClassNLLCriterion(), Adam(1e-3),
+                     compute_dtype=torch.bfloat16, device="cuda",
+                     gradient_compression="bf16",
+                     gradient_clipping=(-1.0, 1.0), max_norm=5.0,
+                     health_probe=True, skip_nonfinite=True)
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.normal(size=(64, 256)).astype(np.float32)
+                         ).cuda()
+    y = torch.from_numpy(rng.integers(0, 10, 64)).cuda()
+
+    def train(inp):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss = step.loss(inp, y)
+            step.update(step.grads(loss))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return loss.detach()
+
+    losses = [train(x) for _ in range(5)]
+    losses = [float(v) for v in losses]
+    health = step.last_health.tolist()
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]
+            and health[3] == health[4] == 0.0):
+        raise RuntimeError(f"step options: losses {losses}, health {health}")
+
+    def snapshot():
+        flat = {f"state.{k}": v for k, v in model.state_dict().items()}
+        for k, v in step.opt_state.items():
+            if isinstance(v, dict):
+                flat.update({f"{k}.{p}": t for p, t in v.items()})
+            else:
+                flat[k] = v
+        return {k: v.clone() for k, v in flat.items()}
+
+    before = snapshot()
+    bad = x.clone()
+    bad[3, 7] = float("nan")
+    nan_loss = float(train(bad))
+    after = snapshot()
+    changed = [k for k in before if not torch.equal(before[k], after[k])]
+    if math.isfinite(nan_loss) or changed \
+            or step.last_health[3].item() == 0:
+        raise RuntimeError(f"skip_nonfinite: loss {nan_loss}, changed "
+                           f"{changed}, health {step.last_health.tolist()}")
+    emit({"phase": "step_options", "ok": True,
+          "options": ["Adam", "bf16 compute", "scale_w", "L1L2Regularizer",
+                      "bf16 compression", "clipping", "max_norm",
+                      "health_probe", "skip_nonfinite"],
+          # the debug mode is a prototype: it raised on none of the
+          # synchronisations it detects
+          "sync_debug_mode": "error", "losses": losses,
+          "health": health,
+          # non-finite values as strings: the line stays strict JSON
+          "nan_step": {"loss": str(nan_loss),
+                       "health": [v if math.isfinite(v) else str(v)
+                                  for v in step.last_health.tolist()],
+                       "state_bit_equal": True},
+          "card": card})
 
 
 def _lm_parity(torch):
@@ -1934,6 +2240,22 @@ def phase_train_lm(torch, card: str):
 
     breakdown = _lm_breakdown(torch, step, x, y)
 
+    # (e) a few Adam steps on the same step (flash attention)
+    from bigdl_tpu_torch.optim import Adam, SGD
+
+    step.optim = Adam(learning_rate=1e-4)
+    step.opt_state = step.optim.init_state(step.params)
+    reset_kernel_launches()
+    adam_losses, adam_wall = _timed_steps(torch, step, x, y, 1, 5)
+    expect_launches(kernel_launches(), LM_PER_STEP, 6, "6 Adam LM steps")
+    if not all(math.isfinite(v) for v in adam_losses) \
+            or not adam_losses[-1] < adam_losses[0]:
+        raise RuntimeError(f"the Adam LM loss did not fall: {adam_losses}")
+    adam = {"losses": adam_losses, "step_ms": adam_wall / 5 * 1e3,
+            "breakdown_ms": _lm_breakdown(torch, step, x, y)}
+    step.optim = SGD(learning_rate=0.01, momentum=0.9)
+    step.opt_state = step.optim.init_state(step.params)
+
     # (d) the same step with dense attention (records/s only)
     attns = [m for m in step.model.modules()
              if isinstance(m, MultiHeadAttention)]
@@ -1958,7 +2280,7 @@ def phase_train_lm(torch, card: str):
            "records_per_s": records_per_s,
            "tokens_per_s": records_per_s * 512,
            "step_ms": wall / iters * 1e3, "max_memory_allocated": peak,
-           "breakdown_ms": breakdown,
+           "breakdown_ms": breakdown, "adam": adam,
            "dense_attention": {"records_per_s": LM_BATCH * iters / dense_wall,
                                "step_ms": dense_wall / iters * 1e3,
                                "losses": dense_losses},
@@ -2093,7 +2415,9 @@ def main() -> int:
     default = phase_train(torch, card, root)
     tie_launches, argmax_launches = phase_train_pool(torch, card, root,
                                                      default)
+    v2_launches = phase_train_v2(torch, card, root)["launches"]
     lm_launches = phase_train_lm(torch, card)
+    phase_step_options(torch, card)
     norm_launches = phase_norm(torch, card)
 
     # each path's numbers come from its own shapes and dtype: serving
@@ -2110,6 +2434,9 @@ def main() -> int:
              "train_argmax": (argmax_launches, "bfloat16",
                               f"one argmax-index train step at batch "
                               f"{TRAIN_BATCH}"),
+             "train_v2": (v2_launches, "bfloat16",
+                          f"one Inception-v2 train step at batch "
+                          f"{V2_BATCH}"),
              "train_lm": (lm_launches, "bfloat16",
                           f"one transformer_lm train step at batch "
                           f"{LM_BATCH}"),

@@ -115,3 +115,60 @@ def test_log_softmax_relu_and_eval_dropout():
     _check(jnn.LogSoftMax(), tnn.LogSoftMax(), x, rtol=1e-5)
     _check(jnn.ReLU(True), tnn.ReLU(True), x, rtol=0)
     _check(jnn.Dropout(0.4), tnn.Dropout(0.4), x, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# initialization methods (random draws differ between the packages'
+# generators: held by their bounds and moments, and by reproducing from a
+# seed; the deterministic methods equal the JAX package's)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name,args", [
+    ("Zeros", None), ("Ones", None), ("ConstInitMethod", (0.25,)),
+    ("BilinearFiller", ()),
+])
+def test_deterministic_init_equals_jax(name, args):
+    from bigdl_tpu.nn import init as jinit
+    from bigdl_tpu_torch.nn import init as tinit
+
+    jm, tm = ((getattr(jinit, name), getattr(tinit, name)) if args is None
+              else (getattr(jinit, name)(*args), getattr(tinit, name)(*args)))
+    for shape in ((4, 3), (2, 3, 4, 5), (1, 1, 3, 3)):
+        got = tm.init(shape, generator=torch.Generator().manual_seed(0))
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), jm.init(shape))
+
+
+@pytest.mark.parametrize("name,args,fans,check", [
+    ("RandomUniform", (), (64, None), ("uniform", 1 / 8.0)),
+    ("RandomUniform", (-0.3, 0.2), (None, None), ("uniform", (-0.3, 0.2))),
+    ("RandomNormal", (0.5, 2.0), (None, None), ("normal", (0.5, 2.0))),
+    ("Xavier", None, (64, 32), ("uniform", (6.0 / 96) ** 0.5)),
+    ("MsraFiller", (), (64, 32), ("normal", (0.0, (2.0 / 64) ** 0.5))),
+    ("MsraFiller", (True,), (64, 32), ("normal", (0.0, (2.0 / 48) ** 0.5))),
+])
+def test_random_init_draws_from_its_rule_and_generator(name, args, fans,
+                                                       check):
+    from bigdl_tpu_torch.nn import init as tinit
+
+    m = getattr(tinit, name) if args is None else getattr(tinit, name)(*args)
+    shape = (200, 400)
+
+    def draw(seed):
+        return m.init(shape, *fans,
+                      generator=torch.Generator().manual_seed(seed))
+
+    a = draw(3)
+    assert a.dtype == torch.float32 and tuple(a.shape) == shape
+    assert torch.equal(a, draw(3)) and not torch.equal(a, draw(4))
+    kind, params = check
+    if kind == "uniform":
+        lo, hi = params if isinstance(params, tuple) else (-params, params)
+        assert lo <= a.min().item() and a.max().item() <= hi
+        assert abs(a.mean().item() - (lo + hi) / 2) < 0.01 * (hi - lo)
+        assert abs(a.std().item() - (hi - lo) / 12 ** 0.5) \
+            < 0.01 * (hi - lo)
+    else:
+        mean, std = params
+        assert abs(a.mean().item() - mean) < 0.02 * std
+        assert abs(a.std().item() - std) < 0.02 * std

@@ -21,11 +21,13 @@ import jax.numpy as jnp
 
 import bigdl_tpu.nn as jnn
 import bigdl_tpu.optim as joptim
+from bigdl_tpu.models import inception as jax_inception
 from bigdl_tpu.models.inception import build_inception_v1 as jax_build_v1
 from bigdl_tpu.nn.module import state_dict as jax_state_dict
 from bigdl_tpu.parallel.train_step import TrainStep as JaxTrainStep
 from bigdl_tpu_torch import nn as tnn
 from bigdl_tpu_torch.models import cli, registry
+from bigdl_tpu_torch.models import inception as torch_inception
 from bigdl_tpu_torch.models.inception import build_inception_v1
 from bigdl_tpu_torch.optim import SGD
 from bigdl_tpu_torch.parallel import TrainStep
@@ -244,6 +246,50 @@ def test_train_step_drives_both_backward_functions(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# Inception-v2: a narrow stack of its layer kinds through the train step
+# ---------------------------------------------------------------------------
+
+def narrow_inception_v2(nn, lib):
+    """A ``_conv_bn`` stem, a ceil max pool, an average-pool block, a
+    stride-2 max-pool block and the head, at 8-32 channels on
+    [2, 3, 32, 32], from one package's public classes and builders."""
+    m = nn.Sequential()
+    for layer in lib._conv_bn(3, 8, 7, 7, 2, 2, 3, 3, "conv1/7x7_s2"):
+        m.add(layer)
+    m.add(nn.SpatialMaxPooling(3, 3, 2, 2).ceil())
+    m.add(lib.inception_layer_v2(8, [[4], [4, 6], [4, 6], ["avg", 4]],
+                                 "inception_3a/"))
+    m.add(lib.inception_layer_v2(20, [[0], [4, 6], [4, 6], ["max", 0]],
+                                 "inception_3c/"))
+    m.add(nn.SpatialAveragePooling(4, 4, 1, 1))
+    m.add(nn.View(32).set_num_input_dims(3))
+    m.add(nn.Linear(32, 10))
+    m.add(nn.LogSoftMax())
+    return m
+
+
+def test_three_sgd_steps_of_narrow_inception_v2_follow_the_jax_step():
+    jmodel = narrow_inception_v2(jnn, jax_inception)
+    tmodel = narrow_inception_v2(tnn, torch_inception)
+    state = {k: np.asarray(v) for k, v in jax_state_dict(jmodel).items()}
+    tnn.load_state_dict(tmodel, from_jax_state(state, "cpu", tmodel))
+    sgd = dict(learning_rate=0.01, momentum=0.9)
+    jstep = JaxTrainStep(jmodel, jnn.ClassNLLCriterion(), joptim.SGD(**sgd))
+    tstep = TrainStep(tmodel, tnn.ClassNLLCriterion(), SGD(**sgd),
+                      device="cpu")
+    for i in range(3):
+        x, y = _batch(i)
+        want = float(jstep.run(jnp.asarray(x), jnp.asarray(y),
+                               jax.random.key(i)))
+        np.testing.assert_allclose(tstep.run(x, y), want, rtol=1e-5)
+    got = to_numpy_state(tstep.model)
+    assert set(got) == set(jstep.params) | set(jstep.buffers)
+    for k, v in {**jstep.params, **jstep.buffers}.items():
+        np.testing.assert_allclose(got[k], np.asarray(v), rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
 # cli perf
 # ---------------------------------------------------------------------------
 
@@ -289,6 +335,27 @@ def test_perf_trains_on_the_cpu_and_reports(monkeypatch, capsys):
                         r"[0-9.]+s\)", lines[-1])
 
 
+def test_perf_trains_narrow_inception_v2_on_the_cpu(monkeypatch, capsys):
+    """``perf`` through the registry with a narrow Inception-v2 (batch
+    norm, average-pool blocks): finite losses, and the registered
+    ``inception_v2`` entry is the full-width model's."""
+    entry = registry.MODELS["inception_v2"]
+    assert (entry.sample, entry.dtype) == ((3, 224, 224), "float32")
+
+    def narrow(num_classes=0, generator=None):
+        torch.manual_seed(0)
+        return narrow_inception_v2(tnn, torch_inception)
+
+    monkeypatch.setitem(registry.MODELS, "narrow_v2",
+                        registry.ModelEntry(narrow, (3, 32, 32), "float32"))
+    cli.main(["perf", "--model", "narrow_v2", "-b", "4", "-i", "2",
+              "--warmup", "1", "--num-classes", "10", "--device", "cpu"])
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-2])
+    assert report["bf16"] and len(report["losses"]) == 3
+    assert all(np.isfinite(report["losses"]))
+    assert not any(report["launches"].values())
+
+
 # ---------------------------------------------------------------------------
 # full width (slow)
 # ---------------------------------------------------------------------------
@@ -314,3 +381,4 @@ def test_full_width_inception_v1_train_step_matches_jax():
     for k, v in jstep.params.items():
         np.testing.assert_allclose(got_state[k], np.asarray(v), rtol=1e-4,
                                    atol=1e-6, err_msg=k)
+
