@@ -1,7 +1,7 @@
 """The benchmark configurations the port can run, and the train step each
 one benches (the port of ``bench.py::_configs`` and ``make_step``,
-``bench.py:128-219``, for ``inception_v1_imagenet`` and
-``transformer_lm``).
+``bench.py:128-219``, for ``inception_v1_imagenet``,
+``resnet50_imagenet`` and ``transformer_lm``).
 
 Each configuration is the JAX one: the same model arguments, the same
 batch made from ``np.random.default_rng(0)`` (normal pixels and class
@@ -9,7 +9,7 @@ labels; uniform tokens with a target per position), the same criterion
 and default batch, SGD(0.01, momentum 0.9) and bf16 compute over f32
 masters.  Weights come from a ``torch.Generator`` seeded with 0.
 ``optimize_for_tpu`` is not carried over: the transformer has no
-convolution for it to rewrite, and the port keeps Inception-v1 in NCHW.
+convolution for it to rewrite, and the port keeps the CNNs in NCHW.
 Nothing of ``bench.py``'s timing, MFU or result banking is here.
 
     from bigdl_tpu_torch.bench_configs import make_step
@@ -52,7 +52,7 @@ def _tokens(rng, batch, seq, vocab, classes):
 
 def configs() -> Dict[str, Config]:
     from bigdl_tpu_torch import nn
-    from bigdl_tpu_torch.models import build_inception_v1
+    from bigdl_tpu_torch.models import build_inception_v1, build_resnet
     from bigdl_tpu_torch.models.transformer import build_transformer_lm
 
     return {
@@ -60,6 +60,10 @@ def configs() -> Dict[str, Config]:
             lambda g: build_inception_v1(1000, generator=g),
             lambda rng, b: _img(rng, b, 3, 224, 224, 1000),
             nn.ClassNLLCriterion, 256),
+        "resnet50_imagenet": Config(
+            lambda g: build_resnet(50, 1000, generator=g),
+            lambda rng, b: _img(rng, b, 3, 224, 224, 1000),
+            nn.ClassNLLCriterion, 128),
         # decoder-only LM through the flash-attention kernels:
         # [batch, 512] tokens -> per-position next-token NLL
         "transformer_lm": Config(

@@ -1,6 +1,7 @@
 """Model registry: model names to builders and canonical input specs
 (ported from ``bigdl_tpu/models/registry.py``; only the models the port
-has so far)."""
+has so far: Inception-v1 and -v2, ResNet-20 on CIFAR-10, ResNet-50 and
+the transformer LM)."""
 
 from __future__ import annotations
 
@@ -43,6 +44,20 @@ def _inception_v2(num_classes: int = 0,
     return build_inception_v2(num_classes or 1000, generator=generator)
 
 
+def _resnet_cifar(num_classes: int = 0,
+                  generator: Optional[torch.Generator] = None):
+    from bigdl_tpu_torch.models.resnet import build_resnet_cifar
+
+    return build_resnet_cifar(20, num_classes or 10, generator=generator)
+
+
+def _resnet50(num_classes: int = 0,
+              generator: Optional[torch.Generator] = None):
+    from bigdl_tpu_torch.models.resnet import build_resnet
+
+    return build_resnet(50, num_classes or 1000, generator=generator)
+
+
 def _transformer(num_classes: int = 0,
                  generator: Optional[torch.Generator] = None):
     from bigdl_tpu_torch.models.transformer import build_transformer_lm
@@ -54,6 +69,9 @@ def _transformer(num_classes: int = 0,
 MODELS: Dict[str, ModelEntry] = {
     "inception_v1": ModelEntry(_inception_v1, (3, 224, 224), "float32"),
     "inception_v2": ModelEntry(_inception_v2, (3, 224, 224), "float32"),
+    # the CIFAR-10 ResNet-20 and the ImageNet ResNet-50
+    "resnet": ModelEntry(_resnet_cifar, (3, 32, 32), "float32"),
+    "resnet50": ModelEntry(_resnet50, (3, 224, 224), "float32"),
     # [batch, 128] int tokens -> per-position log-probs over the vocab
     "transformer": ModelEntry(_transformer, (LM_SEQ_LEN,), "int32"),
 }

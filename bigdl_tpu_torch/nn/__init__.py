@@ -2,7 +2,7 @@
 under the JAX package's names (``bigdl_tpu/nn/__init__.py``)."""
 
 from bigdl_tpu_torch.nn.module import (  # noqa: F401
-    Module, Container, Sequential, state_dict, parameters, load_state_dict,
+    Module, Container, Sequential, Identity, state_dict, parameters, load_state_dict,
     param_meta,
 )
 from bigdl_tpu_torch.nn.criterion import *  # noqa: F401,F403

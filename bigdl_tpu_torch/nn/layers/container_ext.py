@@ -1,4 +1,4 @@
-"""Concat and TimeDistributed, ported from
+"""Concat, ConcatTable and TimeDistributed, ported from
 ``bigdl_tpu/nn/layers/container_ext.py``."""
 
 from __future__ import annotations
@@ -7,7 +7,7 @@ import torch
 
 from bigdl_tpu_torch.nn.module import Container, Module
 
-__all__ = ["Concat", "TimeDistributed"]
+__all__ = ["Concat", "ConcatTable", "TimeDistributed"]
 
 
 class Concat(Container):
@@ -20,6 +20,14 @@ class Concat(Container):
 
     def forward(self, x):
         return torch.cat([m(x) for m in self._modules.values()], dim=self.dim)
+
+
+class ConcatTable(Container):
+    """Apply every member to the same input and return the outputs as a
+    list, a table (``nn/ConcatTable.scala``)."""
+
+    def forward(self, x):
+        return [m(x) for m in self._modules.values()]
 
 
 class TimeDistributed(Container):

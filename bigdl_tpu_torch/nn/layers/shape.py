@@ -1,4 +1,4 @@
-"""View, ported from ``bigdl_tpu/nn/layers/shape.py``."""
+"""View and CAddTable, ported from ``bigdl_tpu/nn/layers/shape.py``."""
 
 from __future__ import annotations
 
@@ -6,7 +6,7 @@ import math
 
 from bigdl_tpu_torch.nn.module import Module
 
-__all__ = ["View"]
+__all__ = ["View", "CAddTable"]
 
 
 class View(Module):
@@ -32,3 +32,19 @@ class View(Module):
         if -1 not in self.sizes and x.numel() != n_elem:
             return x.reshape((-1,) + self.sizes)  # leading batch dim kept
         return x.reshape(self.sizes)
+
+
+class CAddTable(Module):
+    """The elementwise sum of a table's tensors (``nn/CAddTable.scala``).
+    ``inplace`` is accepted for the reference's signature; as in the JAX
+    package the sum is a new tensor, so autograd may keep the inputs."""
+
+    def __init__(self, inplace: bool = False):
+        super().__init__()
+        self.inplace = inplace
+
+    def forward(self, xs):
+        out = xs[0]
+        for t in xs[1:]:
+            out = out + t
+        return out

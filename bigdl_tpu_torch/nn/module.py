@@ -19,7 +19,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-__all__ = ["Module", "Container", "Sequential", "state_dict",
+__all__ = ["Module", "Container", "Sequential", "Identity", "state_dict",
            "parameters", "load_state_dict", "param_meta"]
 
 
@@ -92,6 +92,13 @@ class Sequential(Container):
     def forward(self, x):
         for m in self._modules.values():
             x = m(x)
+        return x
+
+
+class Identity(Module):
+    """Pass-through (``nn/Identity.scala``)."""
+
+    def forward(self, x):
         return x
 
 

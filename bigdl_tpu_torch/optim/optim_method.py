@@ -26,8 +26,11 @@ tensors; the schedules and methods then compute their per-step scalars
 there too.  ``LBFGS`` is host-side over a flat vector, as in the JAX
 package, and not on the step path.
 
-Not ported yet: the sparse row-wise leg (``update_mixed``,
-``_apply_sparse``) and saving and loading a method.
+A method saves and loads as a BTPU file (``save``/``load``, through
+``utils/serializer.py``); the ``Optimizer`` keeps its loop state and
+the step's optimizer state in the method's ``state`` dict when it
+writes a checkpoint.  Not ported yet: the sparse row-wise leg
+(``update_mixed``, ``_apply_sparse``).
 """
 
 from __future__ import annotations
@@ -330,6 +333,21 @@ class OptimMethod:
                state: Dict[str, Any]) -> Dict[str, Any]:
         """Apply one step to ``params`` in place; return the new state."""
         raise NotImplementedError
+
+    def get_learning_rate(self) -> float:
+        return float(getattr(self, "learning_rate", 0.0))
+
+    def save(self, path: str, overwrite: bool = False) -> "OptimMethod":
+        from bigdl_tpu_torch.utils.serializer import save_optim_method
+
+        save_optim_method(self, path, overwrite)
+        return self
+
+    @staticmethod
+    def load(path: str) -> "OptimMethod":
+        from bigdl_tpu_torch.utils.serializer import load_optim_method
+
+        return load_optim_method(path)
 
     @staticmethod
     def _zeros(params: Tensors) -> Tensors:

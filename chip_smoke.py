@@ -87,7 +87,40 @@ line per phase; any failure ends it with a non-zero exit and no result:
               kernel (convolution, the average-pool kernels, the
               default max pool, the elementwise and reduction work of
               batch norm and the rest).
-8. step_options -- (after train_lm) the train step's options on a small
+8. train_resnet -- (after train_v2) the ResNet family.  (a) both
+              average-pool kernels bit-equal to their plain versions at
+              ResNet-20's head (8x8 on [128, 64, 8, 8]) and ResNet-50's
+              (7x7 on [128, 2048, 7, 7]), f32 and bf16, normal and
+              special inputs; the kernels phase times them.  (b) one f32
+              SGD step of ResNet-20 at batch 8 through the kernels
+              against the same step through the plain versions: loss to
+              1e-5 relative, parameters and batch-norm buffers to 1e-4.
+              (c) the main path, in subprocesses: ``python -m
+              bigdl_tpu_torch.models.cli train --model resnet -b 128
+              --max-epoch 2 --checkpoint <tmp> -f <tmp>`` through the
+              ``LocalOptimizer`` on CIFAR-10 files written here (the
+              loader's synthetic images, both splits from one set of
+              class patterns): finite losses whose epoch-2 mean is below
+              epoch 1's, Top1 above 10% at the last validation,
+              ``model.N``, ``optimMethod.N`` and ``ckptmeta.N.json`` at
+              both epochs with digests that verify, exactly one
+              average-pool forward a step and a validation batch, one
+              backward a step and no other kernel; ``cli test`` on the
+              checkpoint prints the Top1 of the last validation; a
+              1-epoch run resumed to 2 epochs in another directory
+              starts at iteration 9 of epoch 2 and ends at the same
+              ``neval``, with the largest parameter difference from the
+              straight run; records/s of the loop and the share of its
+              wall time outside the train step's calls.  (d) ``cli perf
+              --model resnet50 -b 128`` (bf16, 3 warm-up and 10 timed
+              steps): finite losses that fall, 1 + 1 average-pool
+              launches a step and no other kernel, records/s, step ms,
+              peak memory; forward, backward and optimizer ms; three
+              steps under ``torch.profiler``: device ms, idle share and
+              device ms by class of kernel (convolution, batch norm's
+              kernels found under its forward and backward ops, the
+              default max pool, the average-pool kernels, the rest).
+9. step_options -- (after train_lm) the train step's options on a small
               batch-norm model: ``Adam``, bf16 compute, a per-layer
               scale and regularizer, bf16 gradient compression,
               clipping, ``max_norm``, the health probe and
@@ -95,7 +128,7 @@ line per phase; any failure ends it with a non-zero exit and no result:
               set to raise on a host synchronisation; five finite steps
               whose loss falls, then a NaN input that leaves parameters,
               optimizer state and batch-norm buffers bit-equal.
-9. norm    -- the within-channel LRN and the subtractive, divisive and
+10. norm   -- the within-channel LRN and the subtractive, divisive and
               contrastive normalizations, none of which a registered
               model uses, where the JAX package's kernel bench puts them
               (bench_kernels.py:48-52): ``SpatialWithinChannelLRN(5,
@@ -244,6 +277,19 @@ V2_BATCH = 256
 #: forward and backward once (its max pools take the default path)
 V2_PER_STEP = {"avg_pool_fwd": len(V2_AVG_POOLS),
                "avg_pool_bwd": len(V2_AVG_POOLS)}
+#: ResNet's average-pool heads (``resnet.py``): ResNet-20's 8x8 window
+#: on [128, 64, 8, 8] (f32 through ``cli train``) and ResNet-50's 7x7 on
+#: [128, 2048, 7, 7] (bf16 through ``cli perf``): (path, site, shape,
+#: ``SpatialAveragePooling`` arguments)
+RESNET_BATCH = 128
+RESNET_HEADS = (
+    ("train_resnet", "ResNet-20 head 8x8 s1", (RESNET_BATCH, 64, 8, 8),
+     dict(kw=8, kh=8, dw=1, dh=1)),
+    ("train_resnet50", "ResNet-50 head 7x7 s1", (RESNET_BATCH, 2048, 7, 7),
+     dict(kw=7, kh=7, dw=1, dh=1)))
+#: kernel launches of one ResNet train step (its one average pool; the
+#: ImageNet stem's max pool takes the default path)
+RESNET_PER_STEP = {"avg_pool_fwd": 1, "avg_pool_bwd": 1}
 LM_BATCH = 32
 LM_LAYERS = 6
 #: kernel launches of one transformer_lm train step: one per layer each
@@ -502,16 +548,16 @@ def _pool_bwd_cases(torch):
                  library=library, bound=bound, exact=True)]
 
 
-def _v2_pool_cases(torch):
-    """Both average-pool kernels at Inception-v2's eight sites, batch
-    ``V2_BATCH``, bf16 (the path's dtype; checked bit for bit and timed
-    beside ``F.avg_pool2d`` and ``aten.avg_pool2d_backward``)."""
+def _avg_pool_cases(torch, sites, dtypes):
+    """Both average-pool kernels at ``sites`` ((path, site, shape,
+    ``SpatialAveragePooling`` arguments)) in ``dtypes``, checked bit for
+    bit and timed beside ``F.avg_pool2d`` and
+    ``aten.avg_pool2d_backward``."""
     from bigdl_tpu_torch.nn.layers.pooling import SpatialAveragePooling
     from bigdl_tpu_torch.ops import pool
 
     cases = []
-    for site, c, e, layer_args in V2_AVG_POOLS:
-        shape = (V2_BATCH, c, e, e)
+    for path, site, shape, layer_args in sites:
         layer = SpatialAveragePooling(**layer_args)
         k, s, pad = layer.kw, layer.dw, layer.pad_w
         dims, strides, pads, declared = layer._window(
@@ -539,8 +585,8 @@ def _v2_pool_cases(torch):
                     wgt.numel() * k * k)
 
         geom = (dims, strides, pads)
-        common = dict(path="train_v2", site=f"{site} {k}x{k} s{s} p{pad}",
-                      shape=shape, exact=True, dtypes=(torch.bfloat16,))
+        common = dict(path=path, site=site, shape=shape, exact=True,
+                      dtypes=dtypes)
         cases.append(dict(
             name="avg_pool_fwd", make=fwd_make, bound=fwd_bound,
             kernel=lambda x, g=geom, d=declared: pool.avg_pool_forward(
@@ -563,6 +609,22 @@ def _v2_pool_cases(torch):
                     wgt, x, [k, k], [s, s], [pad, pad], ceil, True, None),
             **common))
     return cases
+
+
+def _v2_pool_cases(torch):
+    """Both average-pool kernels at Inception-v2's eight sites, batch
+    ``V2_BATCH``, bf16 (the path's dtype)."""
+    return _avg_pool_cases(
+        torch, [("train_v2", f"{site} {a['kw']}x{a['kw']} s{a['dw']} "
+                             f"p{a.get('pad_w', 0)}", (V2_BATCH, c, e, e), a)
+                for site, c, e, a in V2_AVG_POOLS],
+        (torch.bfloat16,))
+
+
+def _resnet_pool_cases(torch):
+    """Both average-pool kernels at ResNet's two heads, f32 and bf16."""
+    return _avg_pool_cases(torch, RESNET_HEADS,
+                           (torch.float32, torch.bfloat16))
 
 
 #: the max pools' training sites timed at batch 256: (site, channels,
@@ -819,7 +881,8 @@ def phase_kernels(torch):
              + _pool_cases(torch, "train", TRAIN_BATCH)
              + _lrn_bwd_cases(torch) + _pool_bwd_cases(torch)
              + _maxpool_cases(torch) + _wcl_cases(torch)
-             + _smooth_cases(torch) + _v2_pool_cases(torch))
+             + _smooth_cases(torch) + _v2_pool_cases(torch)
+             + _resnet_pool_cases(torch))
     tols = {torch.float32: dict(rtol=1e-5, atol=1e-6),
             torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
     for case in cases:
@@ -1747,6 +1810,7 @@ def _train_parity(torch, mode=None, compute_dtype=None,
 
     from bigdl_tpu_torch.models.inception import (build_inception_v1,
                                                   build_inception_v2)
+    from bigdl_tpu_torch.models.resnet import build_resnet_cifar
     from bigdl_tpu_torch.nn.criterion import ClassNLLCriterion
     from bigdl_tpu_torch.ops import kernel_launches, reset_kernel_launches
     from bigdl_tpu_torch.optim import SGD
@@ -1754,17 +1818,21 @@ def _train_parity(torch, mode=None, compute_dtype=None,
 
     torch.backends.cudnn.deterministic = True
     gen = torch.Generator().manual_seed(SEED)
+    side, classes = 224, 1000
     if model_name == "inception_v2":
         model = build_inception_v2(1000, generator=gen)
         per_step = V2_PER_STEP
+    elif model_name == "resnet":
+        model = build_resnet_cifar(20, 10, generator=gen)
+        per_step, side, classes = RESNET_PER_STEP, 32, 10
     else:
         model = build_inception_v1(1000, has_dropout=False, generator=gen)
         per_step = POOL_PER_STEP[mode] if mode else PER_STEP
     set_pool_mode(model, mode)
     rng = np.random.default_rng(SEED)
-    x = torch.from_numpy(rng.normal(size=(BATCH, 3, 224, 224))
+    x = torch.from_numpy(rng.normal(size=(BATCH, 3, side, side))
                          .astype(np.float32)).cuda()
-    y = torch.from_numpy(rng.integers(0, 1000, BATCH)).cuda()
+    y = torch.from_numpy(rng.integers(0, classes, BATCH)).cuda()
 
     def step(m):
         return TrainStep(m, ClassNLLCriterion(),
@@ -1849,59 +1917,96 @@ DEVICE_CLASSES = (
     ("default max pool", ("max_pool",)))
 
 
-def device_split(torch, train, steps: int = 3) -> dict:
+def device_split(torch, train, steps: int = 3, by_op: bool = False) -> dict:
     """The wall ms a ``train()`` call over ``steps`` calls (synchronised
     at the window's ends, no profiler), then the device ms a call
-    (kernel time summed) over ``steps`` more under ``torch.profiler``
-    (CUDA activity only), the device's idle share of the wall time, and
-    the device ms a call by ``DEVICE_CLASSES``."""
+    (kernel time summed) over ``steps`` more under ``torch.profiler``,
+    the device's idle share of the wall time, and the device ms a call
+    by ``DEVICE_CLASSES``.  With ``by_op`` the same trace records CPU
+    activity too, and the kernels that no class names and that an op
+    inside ``_BatchNormTrain`` or ``_BatchNormTrainBackward`` launched
+    move to a batch-norm class (``linked_ms``: the kernel time that the
+    trace linked to an op)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
         train()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / steps * 1e3
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if by_op:
+        acts.append(torch.profiler.ProfilerActivity.CPU)
+    with torch.profiler.profile(activities=acts) as prof:
         for _ in range(steps):
             train()
         torch.cuda.synchronize()
+
+    def classify(name):
+        return next((cls for cls, frags in DEVICE_CLASSES
+                     if any(f in name for f in frags)), None)
+
+    rest = "elementwise, reductions, copies"
     split = {name: 0.0 for name, _ in DEVICE_CLASSES}
-    split["elementwise, reductions, copies"] = 0.0
+    split[rest] = 0.0
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms = e.device_time_total / 1e3 / steps
-        cls = next((name for name, frags in DEVICE_CLASSES
-                    if any(f in e.key for f in frags)),
-                   "elementwise, reductions, copies")
-        split[cls] += ms
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            split[classify(e.key) or rest] += \
+                e.device_time_total / 1e3 / steps
     device = sum(split.values())
-    return {"wall_ms": wall, "device_ms": device,
-            "idle_share": 1.0 - device / wall, "device_ms_by_class": split}
+    out = {"wall_ms": wall, "device_ms": device,
+           "idle_share": 1.0 - device / wall, "device_ms_by_class": split}
+    if not by_op:
+        return out
+    bn = linked = 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        anc, in_bn = e, False
+        while anc is not None and not in_bn:
+            in_bn = anc.name.startswith("_BatchNormTrain")
+            anc = anc.cpu_parent
+        for k in e.kernels:
+            ms = k.duration / 1e3 / steps
+            linked += ms
+            if in_bn and classify(k.name) is None:
+                bn += ms
+    split["batch norm (elementwise, reductions)"] = bn
+    split[rest] -= bn
+    out["linked_ms"] = linked
+    return out
 
 
 def _train_breakdown(torch, steps: int = 5,
                      model_name: str = "inception_v1",
-                     batch: int = TRAIN_BATCH, profiled: int = 0):
+                     batch: int = TRAIN_BATCH, profiled: int = 0,
+                     by_op: bool = False, compute_dtype="bf16",
+                     health_probe: bool = False):
     """(c) Median host-clock milliseconds (synchronised) of the forward
-    with the loss, the backward, and the optimizer update of one bf16
-    step at ``batch``, dropout on, as ``cli perf`` builds it; with
-    ``profiled`` steps, also their :func:`device_split` (``device``)."""
+    with the loss, the backward, and the optimizer update of one step
+    (bf16 unless ``compute_dtype`` is ``"f32"``) at ``batch``, dropout
+    on, with the model's own number of classes, as ``cli perf`` builds
+    it, or with the health probe on as the ``Optimizer`` builds it
+    (``health_probe``); with ``profiled`` steps, also their
+    :func:`device_split` (``device``)."""
     from bigdl_tpu_torch.models import registry
+    from bigdl_tpu_torch.nn import Linear
     from bigdl_tpu_torch.nn.criterion import ClassNLLCriterion
     from bigdl_tpu_torch.optim import SGD
     from bigdl_tpu_torch.parallel import TrainStep
 
-    model = registry.build_model(model_name, 1000,
+    model = registry.build_model(model_name,
                                  generator=torch.Generator().manual_seed(0))
+    classes = [m for m in model.modules()
+               if isinstance(m, Linear)][-1].output_size
     rng = np.random.default_rng(0)
-    x = torch.from_numpy(rng.normal(size=(batch, 3, 224, 224))
-                         .astype(np.float32)).cuda()
-    y = torch.from_numpy(rng.integers(0, 1000, batch)).cuda()
+    x = torch.from_numpy(rng.normal(size=registry.input_spec(
+        model_name, batch).shape).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, classes, batch)).cuda()
     step = TrainStep(model, ClassNLLCriterion(),
                      SGD(learning_rate=0.01, momentum=0.9),
-                     compute_dtype=torch.bfloat16, device="cuda")
+                     compute_dtype=torch.bfloat16 if compute_dtype == "bf16"
+                     else None, device="cuda", health_probe=health_probe)
     times = {"forward_ms": [], "backward_ms": [], "optimizer_ms": [],
              "step_ms": []}
     for i in range(steps + 2):
@@ -1924,7 +2029,7 @@ def _train_breakdown(torch, steps: int = 5,
     if profiled:
         out["device"] = device_split(
             torch, lambda: step.update(step.grads(step.loss(x, y))),
-            profiled)
+            profiled, by_op)
     return out
 
 
@@ -2040,6 +2145,211 @@ def phase_train_v2(torch, card: str, root: str):
           "breakdown_ms": breakdown, "last_line": report["last_line"],
           "card": card})
     return report
+
+
+def _write_cifar(folder: str, n: int = 1024) -> None:
+    """CIFAR-10's python batches (``data_batch_1..5``, ``test_batch``)
+    of the loader's synthetic images, train and test drawn from ONE set
+    of class patterns (2n images from the train split's seed; the first
+    n train, the rest test).  The loader's own no-folder fallback draws
+    the test split's patterns from another seed, so on it no model can
+    beat chance."""
+    import pickle
+
+    from bigdl_tpu_torch.dataset.datasets import _synthetic_images
+
+    imgs, labels = _synthetic_images(2 * n, 32, 32, 3, 10, seed=2)
+    flat = imgs.transpose(0, 3, 1, 2).reshape(2 * n, -1)
+    d = os.path.join(folder, "cifar-10-batches-py")
+    os.makedirs(d)
+    parts = [(f"data_batch_{i + 1}", idx) for i, idx in
+             enumerate(np.array_split(np.arange(n), 5))]
+    for name, idx in parts + [("test_batch", np.arange(n, 2 * n))]:
+        with open(os.path.join(d, name), "wb") as f:
+            pickle.dump({b"data": flat[idx],
+                         b"labels": labels[idx].tolist()}, f)
+
+
+def _cli(root: str, args, timeout: int = 600):
+    """``python -m bigdl_tpu_torch.models.cli <args>`` in a subprocess;
+    its standard output's lines."""
+    cmd = [sys.executable, "-m", "bigdl_tpu_torch.models.cli"] + list(args)
+    out = subprocess.run(cmd, cwd=root, env=dict(os.environ, PYTHONPATH=root),
+                         capture_output=True, text=True, timeout=timeout)
+    if out.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd[1:])} exited {out.returncode}:\n"
+                           f"{out.stdout[-4000:]}\n{out.stderr[-4000:]}")
+    return out.stdout.strip().splitlines()
+
+
+def _cli_train(root: str, folder: str, ckpt: str, epochs: int):
+    """``cli train --model resnet -b 128``: its JSON report and its two
+    ``final`` lines."""
+    lines = _cli(root, ["train", "--model", "resnet", "-b", str(RESNET_BATCH),
+                        "--max-epoch", str(epochs), "--checkpoint", ckpt,
+                        "-f", folder])
+    if not (lines[-2].startswith("final Top1Accuracy: ")
+            and lines[-1].startswith("final Top5Accuracy: ")):
+        raise RuntimeError(f"unexpected last lines {lines[-2:]}")
+    return json.loads(lines[-3]), lines[-2:]
+
+
+def _verified_checkpoints(ckpt_dir: str):
+    """The checkpoint numbers under ``ckpt_dir``, each pair's digests
+    verified against its ``ckptmeta.N.json``."""
+    from bigdl_tpu_torch.utils.ckpt_digest import verify_digests
+
+    nums = sorted(int(f.split(".")[1]) for f in os.listdir(ckpt_dir)
+                  if f.startswith("model."))
+    for n in nums:
+        with open(os.path.join(ckpt_dir, f"ckptmeta.{n}.json")) as f:
+            meta = json.load(f)
+        if sorted(meta["digests"]) != [f"model.{n}", f"optimMethod.{n}"]:
+            raise RuntimeError(f"checkpoint {n}: digests of "
+                               f"{sorted(meta['digests'])}")
+        problems = verify_digests(ckpt_dir, meta["digests"])
+        if problems:
+            raise RuntimeError(f"checkpoint {n}: {problems}")
+    return nums
+
+
+def _resnet_main_path(root: str):
+    """(c) ``cli train --model resnet -b 128 --max-epoch 2`` through the
+    ``LocalOptimizer`` on CIFAR-10 files (:func:`_write_cifar`), ``cli
+    test`` on its checkpoint, and a 1-epoch run resumed to 2 epochs in
+    another directory; each in a subprocess."""
+    import tempfile
+
+    import torch
+
+    from bigdl_tpu_torch.utils.serializer import load_module
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resnet_")
+    try:
+        folder = os.path.join(tmp, "cifar")
+        _write_cifar(folder)
+        ck = os.path.join(tmp, "straight")
+        report, finals = _cli_train(root, folder, ck, 2)
+        its = report["iterations"]
+        losses = [v for *_, v in its]
+        if not all(math.isfinite(v) for v in losses):
+            raise RuntimeError(f"cli train losses {losses}")
+        mean = {e: np.mean([v for _, ep, v in its if ep == e])
+                for e in (1, 2)}
+        if not mean[2] < mean[1]:
+            raise RuntimeError(f"the mean loss did not fall from epoch 1 to "
+                               f"epoch 2: {mean}")
+        top1 = report["validation"]["Top1Accuracy"]
+        acc = top1["value"] / top1["count"]
+        if not acc > 0.10:
+            raise RuntimeError(f"Top1 {acc} at the last validation is not "
+                               f"above chance")
+        steps, vals = report["steps"], report["val_batches"]
+        want = {"avg_pool_fwd": steps + vals, "avg_pool_bwd": steps}
+        got = {k: v for k, v in report["launches"].items() if v}
+        if got != want or steps != 16 or vals != 16:
+            raise RuntimeError(f"cli train launches {got} against {want} "
+                               f"({steps} steps, {vals} validation batches)")
+        ckpt_dir = report["checkpoint_dir"]
+        nums = _verified_checkpoints(ckpt_dir)
+        if nums != [8, 16]:
+            raise RuntimeError(f"checkpoints {nums} under {ckpt_dir}")
+        tested = _cli(root, ["test", "--model", "resnet", "-b",
+                             str(RESNET_BATCH), "--checkpoint", ck,
+                             "-f", folder])
+        want_line = f"Top1Accuracy: Accuracy(correct: {int(top1['value'])}, "
+        if not (tested[-2].startswith(want_line)
+                and tested[-2] == finals[0][len("final "):]):
+            raise RuntimeError(f"cli test printed {tested[-2:]} where the "
+                               f"last validation gave {top1} and train "
+                               f"{finals}")
+        # resume: one epoch, then the same command to two epochs
+        ck2 = os.path.join(tmp, "resumed")
+        first, _ = _cli_train(root, folder, ck2, 1)
+        resumed, _ = _cli_train(root, folder, ck2, 2)
+        if not (first["neval"] == 8 and resumed["resumed_from"]
+                and resumed["iterations"][0][0] == 9
+                and resumed["iterations"][0][1] == 2
+                and resumed["neval"] == report["neval"] == 16):
+            raise RuntimeError(f"resume: first run at {first['neval']}, "
+                               f"resumed from {resumed['resumed_from']} at "
+                               f"{resumed['iterations'][:1]} to "
+                               f"{resumed['neval']} against "
+                               f"{report['neval']}")
+        def max_diff(n, other_dir):
+            a = load_module(os.path.join(ckpt_dir, f"model.{n}"))
+            b = load_module(os.path.join(other_dir, f"model.{n}"))
+            a, b = a.state_dict(), b.state_dict()
+            return max((a[k].float() - b[k].float()).abs().max().item()
+                       for k in a)
+
+        diff = max_diff(16, resumed["checkpoint_dir"])
+        # the same first epoch in two processes, no resume between
+        diff1 = max_diff(8, first["checkpoint_dir"])
+        st = report["stages"]
+        iters = st["iteration time"][0]  # the steady iterations
+        return {"losses": losses, "mean_loss_by_epoch": mean,
+                "top1": acc, "final_lines": finals, "test_lines": tested[-2:],
+                "launches": report["launches"], "steps": steps,
+                "val_batches": vals, "checkpoints": nums,
+                "records_per_s": report["records_per_s"],
+                "step_ms": iters / st["iteration time"][1] * 1e3,
+                "share_outside_train_step": 1.0 - st["dispatch time"][0]
+                / iters,
+                "host_read_share": st["host read time"][0] / iters,
+                # the first iteration's wait for the prefetch thread too
+                "data_wait_ms_per_iteration": st["data time"][0]
+                / st["data time"][1] * 1e3, "stages": st,
+                "resume": {"first_neval": first["neval"],
+                           "resumed_at": resumed["iterations"][0][:2],
+                           "neval": resumed["neval"],
+                           "max_param_abs_diff": diff,
+                           "epoch1_two_processes_max_param_abs_diff": diff1,
+                           "deterministic_cudnn": bool(
+                               torch.backends.cudnn.deterministic)}}
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_train_resnet(torch, card: str, root: str):
+    """ResNet: (a) the average-pool kernels bit-equal at both heads, (b)
+    one f32 ResNet-20 step against the plain versions, (c) ``cli train``
+    / ``cli test`` / resume of ResNet-20, (d) ``cli perf --model
+    resnet50 -b 128`` and its breakdown."""
+    checks = avg_pool_checks(torch, [(site, shape, args, 0)
+                                     for _, site, shape, args in RESNET_HEADS])
+    parity = _train_parity(torch, model_name="resnet")
+    torch.cuda.empty_cache()
+    loop = _resnet_main_path(root)
+    perf = _train_main_path(root, model_name="resnet50", batch=RESNET_BATCH,
+                            per_step=RESNET_PER_STEP)
+    breakdown = _train_breakdown(torch, model_name="resnet50",
+                                 batch=RESNET_BATCH, profiled=3, by_op=True)
+    torch.cuda.empty_cache()
+    # where the f32 ResNet-20 step of the loop spends its time: 10
+    # classes and the health probe, as cli train runs it
+    loop["breakdown_ms"] = _train_breakdown(
+        torch, model_name="resnet", batch=RESNET_BATCH, profiled=3,
+        by_op=True, compute_dtype="f32", health_probe=True)
+    torch.cuda.empty_cache()
+    emit({"phase": "train_resnet", "ok": True,
+          "avg_pool_checks": {"geometries": [h[1] for h in RESNET_HEADS],
+                              "checks": checks, "tolerance": "bit-equal",
+                              "inputs": "normal, special (-inf block, "
+                                        "NaN, -0.0)"},
+          "parity": parity, "resnet20_cli_train": loop,
+          "resnet50_perf": {
+              "batch": RESNET_BATCH, "compute": "bf16",
+              "losses": perf["losses"], "launches": perf["launches"],
+              "launches_per_step": RESNET_PER_STEP,
+              "records_per_s": perf["records_per_s"],
+              "step_ms": perf["step_ms"],
+              "max_memory_allocated": perf["max_memory_allocated"],
+              "breakdown_ms": breakdown, "last_line": perf["last_line"]},
+          "card": card})
+    return loop["launches"], perf["launches"]
 
 
 def phase_step_options(torch, card: str):
@@ -2416,6 +2726,7 @@ def main() -> int:
     tie_launches, argmax_launches = phase_train_pool(torch, card, root,
                                                      default)
     v2_launches = phase_train_v2(torch, card, root)["launches"]
+    resnet_launches, resnet50_launches = phase_train_resnet(torch, card, root)
     lm_launches = phase_train_lm(torch, card)
     phase_step_options(torch, card)
     norm_launches = phase_norm(torch, card)
@@ -2437,6 +2748,13 @@ def main() -> int:
              "train_v2": (v2_launches, "bfloat16",
                           f"one Inception-v2 train step at batch "
                           f"{V2_BATCH}"),
+             "train_resnet": (resnet_launches, "float32",
+                              f"one cli train run of ResNet-20 at batch "
+                              f"{RESNET_BATCH} (2 epochs of 8 steps, a "
+                              f"validation of 8 batches each)"),
+             "train_resnet50": (resnet50_launches, "bfloat16",
+                                f"13 ResNet-50 cli perf steps at batch "
+                                f"{RESNET_BATCH}"),
              "train_lm": (lm_launches, "bfloat16",
                           f"one transformer_lm train step at batch "
                           f"{LM_BATCH}"),

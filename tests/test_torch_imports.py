@@ -19,6 +19,11 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
     files = sorted((ROOT / "bigdl_tpu_torch").rglob("*.py")) \
         + [ROOT / "chip_smoke.py", ROOT / "chip_ab.py"]
     assert len(files) > 20
+    # the subpackages and modules of the training loop are scanned too
+    names = {str(p.relative_to(ROOT)) for p in files}
+    assert {"bigdl_tpu_torch/dataset/dataset.py",
+            "bigdl_tpu_torch/optim/optimizer.py",
+            "bigdl_tpu_torch/utils/module_format.py"} <= names
     bad = []
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -43,6 +48,11 @@ def test_importing_the_port_loads_neither_jax_nor_bigdl_tpu():
             "import bigdl_tpu_torch.ops.attention, bigdl_tpu_torch.bench_configs\n"
             "import bigdl_tpu_torch.models.transformer\n"
             "import bigdl_tpu_torch.ops.pooling, bigdl_tpu_torch.ops.norm\n"
+            "import bigdl_tpu_torch.models.resnet, bigdl_tpu_torch.dataset\n"
+            "import bigdl_tpu_torch.dataset.datasets\n"
+            "import bigdl_tpu_torch.optim.optimizer\n"
+            "import bigdl_tpu_torch.utils.serializer\n"
+            "import bigdl_tpu_torch.utils.ckpt_digest\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'bigdl_tpu'))\n"
             "print(bad)\n")
